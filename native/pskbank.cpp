@@ -1,6 +1,6 @@
 // Native channel-bank ring for psk_soft_tpu.
 //
-// TPU-native equivalent of the channelizer->component fan-out the reference
+// Array-native equivalent of the channelizer->component fan-out the reference
 // deploys one CPU process per channel for (each rh.psk_soft instance owns one
 // BulkIO stream).  Here thousands of channels feed ONE device step, so the
 // host-side job is deframing: sample-interleaved frames (s0c0 s0c1 ...

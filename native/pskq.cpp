@@ -1,10 +1,10 @@
 // Native host-side packet queue for psk_soft_tpu.
 //
-// TPU-native equivalent of the BulkIO input-port queue the reference relies
+// Native equivalent of the BulkIO input-port queue the reference relies
 // on (cpp/psk_soft.cpp:349 getPacket(BLOCKING); overflow => queue flush
 // reported via inputQueueFlushed, :353-357).  The demod engines are fed from
 // this queue by a host thread while the device crunches the previous block,
-// so ingest never stalls the TPU step.
+// so ingest never stalls the device step.
 //
 // Semantics:
 //  * bounded by bytes and packet count;

@@ -2,7 +2,7 @@
 
 The reference is launched as a CORBA executable by the REDHAWK domain
 (cpp/main.cpp:24-29, deployed per psk_soft.spd.xml:36-48).  Standalone
-TPU-native equivalent: a CLI that demodulates IQ files/streams, generates
+Array-native equivalent: a CLI that demodulates IQ files/streams, generates
 test signals, runs BER sweeps, and reports benchmarks.
 
   python -m psk_soft_tpu demod --in iq.cf32 --out-prefix out --sps 8 -M 4
@@ -18,6 +18,7 @@ import json
 import sys
 
 import numpy as np
+import jax
 
 
 def _add_demod_config_args(p: argparse.ArgumentParser) -> None:
@@ -184,7 +185,6 @@ def _run_fused_chain(args, cfg) -> int:
         eng = ChainEngine(cfg, C, fmt, code, crc,
                           block_symbols=args.block_symbols,
                           pipeline_depth=args.pipeline_depth,
-                          interpret=True if args.interpret else None,
                           labeling=args.fec_labeling)
     except ValueError as e:
         raise SystemExit(f"--fused-chain: {e}")
@@ -369,15 +369,11 @@ def cmd_demod_batch(args) -> int:
                                     else None,
                                     guard_nonfinite=args.guard_nonfinite,
                                     debug_ports=not args.no_debug_ports,
-                                    soft_i8=args.soft_i8,
-                                    interpret=args.interpret)
+                                    soft_i8=args.soft_i8)
     else:
         if args.soft_i8:
             raise SystemExit("--soft-i8 requires --pipeline full (the "
-                             "quantization runs inside the fused kernel)")
-        if args.interpret:
-            raise SystemExit("--interpret requires --pipeline full (only "
-                             "the fused kernel has an interpret mode)")
+                             "quantization runs inside the steady step)")
         eng = BatchEngine(cfg, channels=C, block_symbols=args.block_symbols,
                           pipeline_depth=args.pipeline_depth,
                           guard_nonfinite=args.guard_nonfinite)
@@ -953,7 +949,6 @@ def cmd_selftest(args) -> int:
     from .config import DemodConfig
     from .models.psk import demod_init, make_demod_fn
     from .testing.signals import gen_psk
-    from .utils.transfer import to_host
 
     ok = True
     for m in (2, 4, 8):
@@ -962,7 +957,7 @@ def cmd_selftest(args) -> int:
                               phase_avg=50, differential=diff)
             x, syms = gen_psk(1000, 8, m, differential=diff)
             st, out = make_demod_fn(cfg)(demod_init(cfg), x)
-            out = to_host(out)
+            out = jax.device_get(out)
             soft = out.soft[out.valid]
             exp = syms[: soft.size]
             if diff and m == 4:
@@ -983,6 +978,9 @@ def cmd_selftest(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .utils.device_env import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="psk_soft_tpu",
                                  description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1034,10 +1032,6 @@ def main(argv=None) -> int:
     db.add_argument("--pipeline-depth", type=int, default=0,
                     help="deferred-assembly depth: dispatch block k, emit "
                          "block k-depth (device/host overlap); 0 = sync")
-    db.add_argument("--interpret", action="store_true",
-                    help="run the fused kernel in Pallas interpret mode "
-                         "(CPU development/debugging; the full pipeline "
-                         "otherwise needs the TPU)")
     db.add_argument("--soft-i8", action="store_true",
                     help="int8-quantized soft decisions on the device "
                          "(round(s*100), the SDR soft-bit wire format): the "
@@ -1143,8 +1137,8 @@ def main(argv=None) -> int:
                          "requires --uw): k7 = (171,133) rate 1/2, k9 = "
                          "(561,753); adds info_bits/corrected/suspect to "
                          "<out-prefix>.frames.jsonl.  NOTE: k9 runs 4x "
-                         "the trellis states and decodes ~3-4x slower "
-                         "than k7 on-chip (docs/HWCHECK_r05.md)")
+                         "the trellis states of k7, so it decodes "
+                         "slower")
     db.add_argument("--fec-puncture", choices=("2/3", "3/4"),
                     help="DVB puncturing of the --fec / --fec-stream code")
     db.add_argument("--auto", action="store_true",
@@ -1170,8 +1164,8 @@ def main(argv=None) -> int:
                          "stream (windowed traceback, no framing): "
                          "decoded bits go to <out-prefix>.fecstream.i8, "
                          "channel-interleaved int8 (runtime/fec.py "
-                         "StreamFecDecoder); k9 decodes ~3-4x slower "
-                         "than k7 on-chip (see --fec)")
+                         "StreamFecDecoder); k9 decodes slower than k7 "
+                         "(see --fec)")
     db.add_argument("--crc", choices=("crc16", "crc32"),
                     help="check + strip each frame's trailing CRC field "
                          "(after --fec / --descramble; requires --uw): "

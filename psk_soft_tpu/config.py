@@ -1,6 +1,6 @@
 """Demodulator configuration ("properties").
 
-TPU-native equivalent of the reference component's SCA property set: the six
+Array-native equivalent of the reference component's SCA property set: the six
 runtime properties declared in ``psk_soft.prf.xml:23-60`` and registered in
 ``cpp/psk_soft_base.cpp:96-149``.  In the reference, properties are mutable
 member variables snapshotted at the top of each service pass

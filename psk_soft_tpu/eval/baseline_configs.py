@@ -7,6 +7,7 @@ every config also runs on CPU (the full sizes match BASELINE.md).
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 import jax
 
@@ -17,13 +18,12 @@ def config1_golden_bpsk(quick: bool = True) -> dict:
     """(1) Single-channel BPSK, 8 sps, the reference test fixture."""
     from ..models.psk import demod_init, make_demod_fn
     from ..testing.signals import gen_psk
-    from ..utils.transfer import to_device, to_host
 
     nsym = 1000
     cfg = DemodConfig(sps=8, num_avg=100, constellation_size=2, phase_avg=50)
     x, syms = gen_psk(nsym, 8, 2)
-    st, out = make_demod_fn(cfg)(demod_init(cfg), to_device(x))
-    out = to_host(out)
+    st, out = make_demod_fn(cfg)(demod_init(cfg), jnp.asarray(x))
+    out = jax.device_get(out)
     soft = out.soft[out.valid]
     exp = syms[: soft.size]
     err = min(np.abs(soft[1:] * np.exp(1j * t) - exp[1:]).max()
@@ -67,7 +67,6 @@ def config4_mixed_64ch(quick: bool = True) -> dict:
     """(4) 64-channel mixed BPSK/QPSK/8PSK batched demod on one chip."""
     from ..models.mixed import MixedParams, make_mixed_demod_fn, mixed_init
     from ..testing.signals import gen_psk_channel
-    from ..utils.transfer import to_device, to_host
 
     C, nsym = 64, 400 if quick else 4000
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
@@ -79,8 +78,8 @@ def config4_mixed_64ch(quick: bool = True) -> dict:
                         seed=c, snr_db=25.0)[0] for c in range(C)])
     fn = make_mixed_demod_fn(cfg)
     st, out = fn(MixedParams.make(ms, diffs), mixed_init(cfg, C),
-                 to_device(xs))
-    out = to_host(out)
+                 jnp.asarray(xs))
+    out = jax.device_get(out)
     worst = 0.0
     for c in range(C):
         s = out.soft[c][out.valid[c]][50:]
@@ -100,7 +99,6 @@ def config5_sharded_qpsk(quick: bool = True) -> dict:
     from ..models.blockpsk import ff_init, make_ff_demod_fn
     from ..parallel.mesh import make_mesh, chan_time_sharding
     from ..parallel.sharded import make_sharded_demod
-    from ..utils.transfer import to_device, to_host
 
     n_dev = len(jax.devices())
     time_ax = 2 if n_dev >= 2 else 1
@@ -115,11 +113,11 @@ def config5_sharded_qpsk(quick: bool = True) -> dict:
     xs += (0.01 * rng.standard_normal(xs.shape)).astype(np.complex64)
 
     fn1 = make_ff_demod_fn(cfg, channels=C)
-    _, out1 = fn1(ff_init(cfg, (C,)), to_device(xs))
+    _, out1 = fn1(ff_init(cfg, (C,)), jnp.asarray(xs))
     mesh = make_mesh(chan=chan_ax, time=time_ax)
     run = make_sharded_demod(cfg, mesh, NS)
-    out2 = run(jax.device_put(to_device(xs), chan_time_sharding(mesh)))
-    h1, h2 = to_host(out1), to_host(out2)
+    out2 = run(jax.device_put(jnp.asarray(xs), chan_time_sharding(mesh)))
+    h1, h2 = jax.device_get(out1), jax.device_get(out2)
     d = np.abs(h2.soft[h2.valid] - h1.soft[h1.valid]).max()
     bits_eq = bool(np.array_equal(h2.bits[h2.valid], h1.bits[h1.valid]))
     return {"config": 5, "channels": C, "mesh": [chan_ax, time_ax],

@@ -16,13 +16,13 @@ import dataclasses
 import math
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..config import DemodConfig
 from ..models.blockpsk import ff_init, make_ff_demod_fn
 from ..ops import slicers
 from ..testing.signals import gen_psk_channel
-from ..utils.transfer import to_device, to_host
 
 
 def qfunc(x: np.ndarray) -> np.ndarray:
@@ -121,8 +121,8 @@ def measure_ber(cfg: DemodConfig, esn0_db: float, num_symbols: int = 20000,
         seed=seed, freq_offset=freq_offset, snr_db=esn0_db, pulse=pulse,
         rrc_beta=cfg.rrc_beta, rrc_span=cfg.rrc_span)
     fn = make_ff_demod_fn(cfg)
-    _, out = fn(ff_init(cfg), to_device(x))
-    out = to_host(out)
+    _, out = fn(ff_init(cfg), jnp.asarray(x))
+    out = jax.device_get(out)
     soft = out.soft[out.valid]
     rx_idx = decide_indices(soft, m)
 

@@ -148,8 +148,7 @@ class ChainFerPoint(NamedTuple):
 def measure_chain_fer(cfg, fmt, code: ConvCode, crc, esn0_db: float, *,
                       channels: int = 128, blocks: int = 3,
                       rows=(80, 300), cfo: float = 0.0,
-                      front_cfo: float = 0.0, seed: int = 0,
-                      interpret: bool | None = None) -> ChainFerPoint:
+                      front_cfo: float = 0.0, seed: int = 0) -> ChainFerPoint:
     """Frame-error rate of the ONE-LAUNCH receive chain at a given Es/N0.
 
     Where :func:`measure_coded_ber` isolates the FEC layer, this drives
@@ -183,11 +182,7 @@ def measure_chain_fer(cfg, fmt, code: ConvCode, crc, esn0_db: float, *,
     from ..models.full import full_from_ff
     from ..ops import tx
     from ..ops.mixer import derotate_host
-    from ..utils.transfer import to_device
 
-    if interpret is None:
-        from ..ops.pallas.viterbi_kernel import default_interpret
-        interpret = default_interpret()
     m = cfg.constellation_size
     rng = np.random.default_rng(seed)
     n_msg = chain_msg_bits(fmt, code, crc)
@@ -199,12 +194,9 @@ def measure_chain_fer(cfg, fmt, code: ConvCode, crc, esn0_db: float, *,
     # (commit_hi = s_total - need_after), or the per-block accounting
     # compares a deferred frame against the next block's infos: require
     # max(rows) + need_after <= s_total, not just payload containment.
-    # Multiple of 128 symbols: Mosaic block tiling needs 8-row-divisible
-    # time tiles on the compiled kernel (interpret mode doesn't check).
     from ..models.chain import _need_after
     s_total = max(max(starts) + fmt.frame_len + a1 + 8,
                   max(rows) + _need_after(fmt))
-    s_total = -(-s_total // 128) * 128
     n_samp = s_total * cfg.sps
     sigma = float(np.sqrt(10.0 ** (-esn0_db / 10.0) / 2.0))
     if cfo and front_cfo:
@@ -228,11 +220,9 @@ def measure_chain_fer(cfg, fmt, code: ConvCode, crc, esn0_db: float, *,
 
     k = len(rows)
     if front_cfo:
-        step = jax.jit(make_front_chain_fn(cfg, fmt, code, k, crc=crc,
-                                           interpret=interpret))
+        step = jax.jit(make_front_chain_fn(cfg, fmt, code, k, crc=crc))
     else:
-        step = jax.jit(make_chain_fn(cfg, fmt, code, k, crc=crc,
-                                     interpret=interpret))
+        step = jax.jit(make_chain_fn(cfg, fmt, code, k, crc=crc))
     state = None
     frames = found = crc_ok = msg_exact = overflow = 0
     for blk in range(blocks):
@@ -258,12 +248,12 @@ def measure_chain_fer(cfg, fmt, code: ConvCode, crc, esn0_db: float, *,
                 from .cfo import acquire_cfo
                 freq_est = np.asarray(acquire_cfo(x, m), np.float32)
                 st_ff, _ = warm(st_ff,
-                                to_device(derotate_host(x, freq_est)))
+                                jnp.asarray(derotate_host(x, freq_est)))
                 state = front_chain_init(fmt, channels,
                                          full_from_ff(cfg, st_ff),
                                          freq=freq_est)
             else:
-                st_ff, _ = warm(st_ff, to_device(x))
+                st_ff, _ = warm(st_ff, jnp.asarray(x))
                 state = chain_init(fmt, channels, full_from_ff(cfg, st_ff))
         state, out = step(
             state, jnp.asarray(np.ascontiguousarray(x.real.T)),

@@ -56,18 +56,17 @@ class FFState(NamedTuple):
 
 
 def ff_init(cfg: DemodConfig, channel_shape: tuple = ()) -> FFState:
-    from ..utils.transfer import complex_ones, complex_zeros
     a1 = max(cfg.num_avg - 1, 0)
     n1 = max(cfg.phase_avg - 1, 0)
     return FFState(
-        win_samples=complex_zeros(channel_shape + (a1, cfg.sps)),
+        win_samples=jnp.zeros(channel_shape + (a1, cfg.sps), jnp.complex64),
         win_energy=jnp.zeros(channel_shape + (a1, cfg.sps), jnp.float32),
         seen=jnp.zeros(channel_shape, jnp.int32),
         phase_hist=jnp.zeros(channel_shape + (n1,), jnp.float32),
         phase_count=jnp.zeros(channel_shape, jnp.int32),
         last_phase=jnp.zeros(channel_shape, jnp.float32),
-        last_any=complex_ones(channel_shape),
-        mf_tail=complex_zeros(channel_shape + (max(cfg.mf_ntaps - 1, 0),)),
+        last_any=jnp.ones(channel_shape, jnp.complex64),
+        mf_tail=jnp.zeros(channel_shape + (max(cfg.mf_ntaps - 1, 0),), jnp.complex64),
     )
 
 
@@ -92,7 +91,8 @@ def _fir_phase_track(cfg: DemodConfig, hist, phase_count, unwrapped, valid,
     if n == 1:
         est = unwrapped
     else:
-        est = jnp.convolve(cat, w[::-1], mode="valid")  # (S,)
+        est = jnp.convolve(cat, w[::-1], mode="valid",  # (S,); HIGHEST:
+                           precision=jax.lax.Precision.HIGHEST)  # no TF32
 
     if assume_steady:
         new_hist = cat[S:] if n > 1 else hist

@@ -1,8 +1,8 @@
 """One-launch receive chain: demod -> frame sync -> Viterbi -> CRC.
 
-The round-4 chain benchmark proved the full coded receive path composes
-into a single jitted program with no host round trips (bench.py
-run_chain); this module is that composition as a public, reusable API.
+The full coded receive path composes into a single jitted program with
+no host round trips; this module is that composition as a public,
+reusable API.
 Everything is static-shaped, so the step jits, scans, vmaps, and runs
 inside ``shard_map`` bodies unchanged -- the chan axis needs no
 collectives because every post-demod stage is per-channel independent
@@ -23,20 +23,20 @@ row; negative values mean the frame started in the previous block.
 
 Stages (each individually equivalence-gated elsewhere):
 
-- flagship fused demod kernel (``models/full.demod_block_full``),
+- steady-state time-major demod (``models/full.demod_block_full``),
 - time-major fixed-capacity frame sync (``ops/framesync.
-  sync_extract_topk_tm`` -- consumes the kernel's native (S, C) planes
+  sync_extract_topk_tm`` -- consumes the demod's native (S, C) planes
   with zero relayout; per-channel total peak ``count`` makes the fixed
   capacity observable),
 - max-log PSK LLRs (``ops/fec.psk_llrs``),
-- Mosaic Viterbi (``ops/pallas/viterbi_kernel.viterbi_decode_pallas`` --
-  fused single-launch ACS+traceback at frame lengths),
+- Viterbi (``ops/fec.viterbi_decode``: the Pallas ACS+traceback kernel
+  on a GPU, the XLA scan on the CPU),
 - optional CRC check (``ops/crc.crc_bits``).
 
 Reference anchor: the bits pipeline the chain feeds,
 /root/reference/cpp/psk_soft.cpp:502-566, 605-615 (the reference emits
 raw sliced bits and leaves sync/FEC/CRC to downstream REDHAWK
-components; here they are one TPU program).
+components; here they are one device program).
 """
 
 from __future__ import annotations
@@ -49,9 +49,8 @@ import numpy as np
 
 from ..config import DemodConfig
 from ..ops.crc import CrcSpec, crc_bits
-from ..ops.fec import ConvCode, info_bits_for, psk_llrs
+from ..ops.fec import ConvCode, info_bits_for, psk_llrs, viterbi_decode
 from ..ops.framesync import FrameFormat, sync_extract_topk_tm
-from ..ops.pallas.viterbi_kernel import viterbi_decode_pallas
 from .full import demod_block_full
 
 
@@ -83,8 +82,7 @@ def chain_msg_bits(fmt: FrameFormat, code: ConvCode,
 
 def chain_tail(soft_re, soft_im, fmt: FrameFormat, code: ConvCode,
                k_frames: int, crc: CrcSpec | None = None,
-               labeling: str = "gray",
-               interpret: bool | None = None, *,
+               labeling: str = "gray", *,
                commit_lo: int | None = None,
                commit_hi: int | None = None) -> ChainOutputs:
     """Post-demod chain: (S, C) soft planes -> decoded frames.
@@ -103,9 +101,7 @@ def chain_tail(soft_re, soft_im, fmt: FrameFormat, code: ConvCode,
     n_rows = c_dim * k_frames
     llr = psk_llrs(fmt.m, sync.payloads.reshape(n_rows, fmt.payload),
                    labeling=labeling)
-    bits = viterbi_decode_pallas(code, llr.reshape(n_rows,
-                                                   fmt.payload * nb),
-                                 interpret=interpret)
+    bits = viterbi_decode(code, llr.reshape(n_rows, fmt.payload * nb))
     msg = bits[:, :n_msg]
     if crc is not None:
         ok = jnp.all(crc_bits(crc, msg) == bits[:, n_msg:], axis=-1)
@@ -152,7 +148,7 @@ def commit_bounds(fmt: FrameFormat, s_block: int) -> tuple[int, int]:
 
 class SeamTailState(NamedTuple):
     """Carried soft columns: the last ``seam_lead(fmt)`` rows of the
-    demodulated stream (time-major planes, the kernel's layout)."""
+    demodulated stream (time-major planes, the demod's layout)."""
 
     tail_re: jnp.ndarray   # (seam_lead, C) float32
     tail_im: jnp.ndarray
@@ -169,8 +165,7 @@ def seam_tail_init(fmt: FrameFormat, channels: int,
 
 def make_seam_tail_fn(fmt: FrameFormat, code: ConvCode, k_frames: int,
                       crc: CrcSpec | None = None, *,
-                      labeling: str = "gray",
-                      interpret: bool | None = None):
+                      labeling: str = "gray"):
     """Seam-correct post-demod chain step over (S, C) soft planes.
 
     Returns ``step(tail, soft_re, soft_im) -> (tail', ChainOutputs)``:
@@ -190,8 +185,7 @@ def make_seam_tail_fn(fmt: FrameFormat, code: ConvCode, k_frames: int,
         ext_im = jnp.concatenate([tail.tail_im, soft_im], axis=0)
         lo, hi = commit_bounds(fmt, s_out)
         out = chain_tail(ext_re, ext_im, fmt, code, k_frames, crc=crc,
-                         labeling=labeling, interpret=interpret,
-                         commit_lo=lo, commit_hi=hi)
+                         labeling=labeling, commit_lo=lo, commit_hi=hi)
         out = out._replace(pos=out.pos - lead)
         return SeamTailState(ext_re[s_out:], ext_im[s_out:]), out
 
@@ -215,7 +209,7 @@ def chain_init(fmt: FrameFormat, channels: int,
 def make_chain_fn(cfg: DemodConfig, fmt: FrameFormat, code: ConvCode,
                   k_frames: int, crc: CrcSpec | None = None, *,
                   labeling: str = "gray", debug_ports: bool = False,
-                  interpret: bool = False, seam: bool = True):
+                  seam: bool = True):
     """Build the one-launch chain step.
 
     seam=True (default, the streaming contract): returns
@@ -234,21 +228,19 @@ def make_chain_fn(cfg: DemodConfig, fmt: FrameFormat, code: ConvCode,
     ``jax.jit`` (or a scan/shard_map) at the call site.
     """
     step_demod = functools.partial(demod_block_full, cfg,
-                                   debug_ports=debug_ports,
-                                   interpret=interpret)
+                                   debug_ports=debug_ports)
 
     if not seam:
         def step(state, x_re, x_im):
             st2, fo = step_demod(state, x_re, x_im)
             out = chain_tail(fo.soft_re, fo.soft_im, fmt, code, k_frames,
-                             crc=crc, labeling=labeling,
-                             interpret=interpret)
+                             crc=crc, labeling=labeling)
             return st2, out
 
         return step
 
     tail_step = make_seam_tail_fn(fmt, code, k_frames, crc=crc,
-                                  labeling=labeling, interpret=interpret)
+                                  labeling=labeling)
 
     def step(state: ChainState, x_re, x_im):
         st2, fo = step_demod(state.demod, x_re, x_im)
@@ -296,17 +288,15 @@ def front_chain_init(fmt: FrameFormat, channels: int, demod_state, *,
 def make_front_chain_fn(cfg: DemodConfig, fmt: FrameFormat,
                         code: ConvCode, k_frames: int,
                         crc: CrcSpec | None = None, *, agc_cfg=None,
-                        labeling: str = "gray", debug_ports: bool = False,
-                        interpret: bool = False):
+                        labeling: str = "gray", debug_ports: bool = False):
     """One-launch chain with the FRONT-END stages inside the program:
     "wideband capture -> info bits" as one jitted step.
 
     NCO derotation (ops/mixer.derotate: per-channel carrier removal for
     offsets beyond the M-th-power tracker's pull-in) and optional AGC
-    (ops/agc.agc_block_tm: MXU-form gain normalization + squelch) run on
-    the same (T, C) input planes the demod kernel eats -- pure VPU/MXU
-    work XLA fuses ahead of the kernel, no extra HBM round trip on the
-    host side.  The seam sync tail is carried exactly as in
+    (ops/agc.agc_block_tm: gain normalization + squelch) run on the same
+    (T, C) input planes the demod eats -- elementwise work XLA fuses ahead
+    of it, no extra round trip through the host.  The seam sync tail is carried exactly as in
     :func:`make_chain_fn` (seam mode).
 
     Returns ``step(state, x_re, x_im) -> (state', ChainOutputs)`` with
@@ -322,10 +312,9 @@ def make_front_chain_fn(cfg: DemodConfig, fmt: FrameFormat,
     from ..ops.mixer import derotate
 
     step_demod = functools.partial(demod_block_full, cfg,
-                                   debug_ports=debug_ports,
-                                   interpret=interpret)
+                                   debug_ports=debug_ports)
     tail_step = make_seam_tail_fn(fmt, code, k_frames, crc=crc,
-                                  labeling=labeling, interpret=interpret)
+                                  labeling=labeling)
 
     def step(state: FrontChainState, x_re, x_im):
         fr = state.front

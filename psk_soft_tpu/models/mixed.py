@@ -10,8 +10,8 @@ per-sps groups, which the engines do by instantiating one group per sps).
 
 All mode-dependent stages are branch-free selects over the three slicer/
 power variants (ops/slicers.slice_bits_dynamic, ops/phase.
-mth_power_phase_dynamic), so the program stays a single dense batch on the
-VPU -- no gather/scatter, no per-channel control flow.
+mth_power_phase_dynamic), so the program stays a single dense batch -- no
+gather/scatter, no per-channel control flow.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Functionally reproduces the reference hot loop (C2/C3/C4/C5/C6,
 
     demod_block(cfg, state, x) -> (state', DemodOutputs)
 
-TPU-first structure: everything that is actually parallel in the reference's
+Array-first structure: everything that is actually parallel in the reference's
 per-sample loop is computed in parallel (energy binning, windowed argmax,
 decision-sample gather, M-th-power phase, rotation, slicing); only the truly
 sequential recursion -- unwrap-against-estimate feeding the sliding linear

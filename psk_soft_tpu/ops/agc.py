@@ -1,10 +1,10 @@
-"""Automatic gain control + squelch front-end (block recast, MXU form).
+"""Automatic gain control + squelch front-end (block recast, matmul form).
 
 Extension beyond the reference: REDHAWK deployments put an AGC component in
 front of psk_soft (whose energy-argmax timing is scale-invariant but whose
 soft-decision amplitudes track the input level, cpp/psk_soft.cpp:465-500 —
 nothing in the component normalizes them) and a squelch to silence dead
-channels.  This module provides both, designed TPU-first:
+channels.  This module provides both, designed array-first:
 
 The classical AGC is a per-sample sequential recursion:
 
@@ -24,8 +24,7 @@ Two recasts make it a block-parallel device op:
        p[k] = (1-a)^(k+1) * p0  +  sum_j  a (1-a)^(k-j) q[j]
 
    i.e. one (K, K) lower-triangular matmul against the (K, C) chunk-power
-   plane (MXU work, exactly like the kernel's banded-matmul trackers,
-   ops/pallas/demod_kernel.py) plus a decay vector times the carried power.
+   plane plus a decay vector times the carried power.
    Bit-for-bit identical to running the chunk recurrence sequentially is
    not required (FP association differs); equivalence is gated to 1e-6.
 
@@ -130,7 +129,8 @@ def agc_block(cfg: AgcConfig, state: AgcState, x: jnp.ndarray):
     # First chunk primes the EMA with data (no attack transient).
     p0 = jnp.where(state.primed, state.power, q[..., 0])
     l, d = _ema_mats(cfg.alpha, k)
-    p = (jnp.einsum("kj,...j->...k", jnp.asarray(l), q)
+    p = (jnp.einsum("kj,...j->...k", jnp.asarray(l), q,
+                    precision=jax.lax.Precision.HIGHEST)   # no TF32
          + jnp.asarray(d) * p0[..., None])
     # An unprimed stream's first chunk is exactly its own mean power.
     p = p.at[..., 0].set(jnp.where(state.primed, p[..., 0], q[..., 0]))
@@ -167,7 +167,8 @@ def agc_block_tm(cfg: AgcConfig, state: AgcState, x_re: jnp.ndarray,
     q = jnp.mean(pwr.reshape(k, cfg.chunk, c), axis=1).astype(jnp.float32)
     p0 = jnp.where(state.primed, state.power, q[0])
     l, d = _ema_mats(cfg.alpha, k)
-    p = (jnp.einsum("kj,jc->kc", jnp.asarray(l), q)
+    p = (jnp.einsum("kj,jc->kc", jnp.asarray(l), q,
+                    precision=jax.lax.Precision.HIGHEST)   # no TF32
          + jnp.asarray(d)[:, None] * p0[None, :])
     p = p.at[0].set(jnp.where(state.primed, p[0], q[0]))
     gain = cfg.target_rms / jnp.sqrt(jnp.maximum(p, cfg.eps))

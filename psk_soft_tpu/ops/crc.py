@@ -11,7 +11,7 @@ with G a host-precomputed (L, d) basis (column j of row i = CRC of the
 unit message e_i with zero init) and c0 the CRC of the zero message of
 the same length under the real init/xorout.  So checking a whole batch
 of frame payloads is ONE (rows, L) x (L, d) matmul with a parity
-reduction -- MXU work, no serial register walk on the data path.
+reduction -- matmul work, no serial register walk on the data path.
 
 Bit-serial convention (non-reflected): message bits enter MSB-of-the-
 polynomial first; ``crc_serial`` is the definitional register walk used
@@ -119,6 +119,8 @@ def _crc_matrix(spec: CrcSpec, length: int):
 
 @jax.jit
 def _crc_matmul(bits, basis, const):
+    # 0/1 operands are exact in TF32 and the integer sums (< 2^24) are
+    # exact in float32, so default precision is exact here.
     acc = bits.astype(jnp.float32) @ basis.astype(jnp.float32)
     return (acc.astype(jnp.int32) & 1).astype(jnp.int8) ^ const
 

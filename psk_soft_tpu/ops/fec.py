@@ -1,11 +1,11 @@
-"""Forward error correction: convolutional codes + Viterbi decoding, TPU-first.
+"""Forward error correction: convolutional codes + Viterbi decoding.
 
 Extension beyond the reference: psk_soft emits raw sliced bits
 (cpp/psk_soft.cpp:502-566) and leaves FEC to downstream REDHAWK components
 (every deployed PSK link runs one -- the classic chain is the K=7 rate-1/2
 convolutional code with Viterbi decoding).  This module provides that layer,
-designed for the MXU/VPU rather than as a translation of a sequential
-decoder:
+designed as batched array programs rather than as a translation of a
+sequential decoder:
 
 - **Encoder** -- y_j[t] = parity(g_j & [u[t] .. u[t-K+1]]): K static-shifted
   XORs over the whole bit plane (the branch-FMA pattern in GF(2)), one
@@ -18,15 +18,17 @@ decoder:
 - **Viterbi ACS as a dense gather/scan** -- the trellis is static: for
   2^(K-1) states the two predecessors and their expected code bits are
   host-precomputed index planes; each time step is two gathers + one
-  select over the whole state vector (VPU work, no data-dependent control
-  flow), run under ``jax.lax.scan`` with the path-metric vector as carry.
+  select over the whole state vector (no data-dependent control flow),
+  run under ``jax.lax.scan`` with the path-metric vector as carry.
   Traceback is a second (reverse) scan over the stored decision planes.
   ``vmap`` batches frames/channels; every shape is static.
 
 The per-step state recursion is inherently sequential in time (each ACS
 depends on the previous path metrics), so throughput comes from batching:
-decode B frames in one launch and the (B, S) metric plane fills the VPU
-lanes.  This matches the frame-oriented use here (FrameSyncer payloads);
+decode B frames in one launch and the (B, S) metric plane fills the
+vector lanes.  On a GPU the frame decode runs in one kernel instead
+(ops/pallas/viterbi_kernel.py): the scan's per-step launches dominate
+there.  This matches the frame-oriented use here (FrameSyncer payloads);
 a streaming sliding-window decoder would trade optimality for latency.
 
 Conventions:
@@ -55,18 +57,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_MAX_K = 10          # 512 states; (B, S) planes stay comfortably in VMEM
+_MAX_K = 10          # 512 states
 
 
 def _resolve_backend(backend: str) -> str:
-    """'auto' -> the Mosaic kernel on TPU, the XLA scan elsewhere.
+    """'auto' -> the Pallas kernel on a GPU, the XLA scan on the CPU.
 
     The two backends are bit-identical on decoded output (gated in
-    tests/test_viterbi_kernel.py); 'pallas' exists off-TPU too (interpret
-    mode) for gating, it is just slow there.
+    tests/test_viterbi_kernel.py); 'pallas' on the CPU runs the kernel in
+    the Pallas interpreter, for those tests.
     """
     if backend == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
+        return "pallas" if jax.default_backend() == "gpu" else "xla"
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown viterbi backend {backend!r}")
     return backend
@@ -124,12 +126,8 @@ class ConvCode:
 # Presets: the two codes everything in the field interoperates with, plus
 # the 4-state textbook code (small enough to check a trellis by hand).
 CODE_K7 = ConvCode(7, (0o171, 0o133))
-# K=9 has 4x the trellis states of K=7, so on-chip decode runs ~3-4x
-# slower (218 vs 717 Minfobit/s at 2048 rows, docs/HWCHECK_r05.md; the
-# round-4 20x cliff was the traceback's full-plane bit accumulation,
-# fixed by the r5 packed shift-or words) -- the natural coding-gain vs
-# throughput trade, documented at the user-facing surfaces (CLI
-# --fec/--fec-stream).
+# K=9 has 4x the trellis states of K=7: the coding-gain vs throughput
+# trade, documented at the user-facing surfaces (CLI --fec/--fec-stream).
 CODE_K9 = ConvCode(9, (0o561, 0o753))
 CODE_K3 = ConvCode(3, (0o7, 0o5))
 # DVB-S puncturing of the K=7 code.
@@ -271,14 +269,16 @@ def _make_acs(exp_sign):
     # Butterfly structure instead of a gather: states s' and s' + S/2
     # share the predecessor pair {2j, 2j+1} with j = s' mod S/2, so
     # pm[:, pred] == tile(pm.reshape(B, S/2, 2), S-axis x2) -- a pure
-    # relayout XLA handles at full VPU rate (a (B, S, 2) gather per scan
-    # step measured ~0.6 ms on the TPU; this form is >100x faster).
+    # relayout, no per-step gather.
     s_count = exp_sign.shape[0]
 
     def acs(pm, r_t):
         # r_t: (B, n).  Branch metric of transition p -> s': correlation
-        # of the received LLRs with the expected signs.
-        bm = jnp.einsum("bn,spn->bsp", r_t, exp_sign)        # (B, S, 2)
+        # of the received LLRs with the expected signs.  HIGHEST: the
+        # signs are exact but the LLRs are not in TF32, and the kernel
+        # twin sums the same float32 products.
+        bm = jnp.einsum("bn,spn->bsp", r_t, exp_sign,
+                        precision=jax.lax.Precision.HIGHEST)  # (B, S, 2)
         b = pm.shape[0]
         pairs = pm.reshape(b, s_count // 2, 2)
         cand = jnp.concatenate([pairs, pairs], axis=1) + bm  # (B, S, 2)
@@ -286,11 +286,10 @@ def _make_acs(exp_sign):
         new = jnp.where(dec, cand[..., 1], cand[..., 0])
         # Re-zero against state 0's metric, not the max: any per-row
         # constant bounds the growth (survivor metrics stay within the
-        # merge-depth spread of each other), decisions compare within a
-        # row so the reference choice cancels, and on the Mosaic kernel
-        # a row broadcast is ~75 cycles/step cheaper than a 64-sublane
-        # max reduction.  The kernel mirrors this term for term
-        # (ops/pallas/viterbi_kernel.py) so bit parity is preserved.
+        # merge-depth spread of each other) and decisions compare within a
+        # row so the reference choice cancels.  The kernel mirrors this
+        # term for term (ops/pallas/viterbi_kernel.py) so bit parity is
+        # preserved.
         new = new - new[:, 0:1]                              # re-zero
         return new, dec
 
@@ -298,8 +297,8 @@ def _make_acs(exp_sign):
 
 
 def _make_back(k: int, s_count: int):
-    # One-hot contraction instead of a per-row dynamic gather (same
-    # TPU-gather pathology as the ACS; S <= 512 keeps this cheap).
+    # One-hot contraction instead of a per-row dynamic gather (S <= 512
+    # keeps this cheap).
     def back(s, dec_t):
         u = (s >> (k - 2)).astype(jnp.int8)
         onehot = (jnp.arange(s_count, dtype=jnp.int32)[None, :]
@@ -312,18 +311,22 @@ def _make_back(k: int, s_count: int):
     return back
 
 
-@functools.partial(jax.jit, static_argnames=("k", "s_count", "terminate"))
-def _viterbi(llrs, exp_sign, k: int, s_count: int, terminate: bool):
-    """(B, T, n) LLRs -> (B, T) decoded bits (incl. flush bits)."""
+@functools.partial(jax.jit, static_argnames=("k", "s_count", "terminate",
+                                             "unroll"))
+def _viterbi(llrs, exp_sign, k: int, s_count: int, terminate: bool,
+             unroll: int = 1):
+    """(B, T, n) LLRs -> (B, T) decoded bits (incl. flush bits).
+    ``unroll`` steps per scan iteration (timing comparisons only)."""
     b = llrs.shape[0]
     neg = jnp.float32(-1e9)
     pm0 = jnp.full((b, s_count), neg).at[:, 0].set(0.0)
     pm, decs = jax.lax.scan(_make_acs(exp_sign), pm0,
-                            jnp.swapaxes(llrs, 0, 1))
+                            jnp.swapaxes(llrs, 0, 1), unroll=unroll)
     start = (jnp.zeros(b, jnp.int32) if terminate
              else jnp.argmax(pm, axis=1).astype(jnp.int32))
     # decs stacks per-step decisions time-major: (T, B, S).
-    _, bits_rev = jax.lax.scan(_make_back(k, s_count), start, decs[::-1])
+    _, bits_rev = jax.lax.scan(_make_back(k, s_count), start, decs[::-1],
+                               unroll=unroll)
     return jnp.swapaxes(bits_rev[::-1], 0, 1)                # (B, T)
 
 
@@ -394,30 +397,19 @@ def viterbi_stream_init(code: ConvCode, batch: int, depth: int,
         dec=jnp.zeros((depth, batch, s_count), bool))
 
 
-def viterbi_stream_step(code: ConvCode, state: ViterbiStreamState, llrs,
-                        backend: str = "auto"):
+def viterbi_stream_step(code: ConvCode, state: ViterbiStreamState, llrs):
     """Feed (B, T, n) soft steps; returns (state', (B, T) delayed bits).
 
     Emitted bit t of this call decodes the trellis step D positions
     before it (D = window depth): the caller sees the stream shifted by
     D steps.  Puncturing: depuncture before calling (period-aligned
-    blocks need no phase carry).  The carry layout is backend-invariant,
-    so a stream may switch backends mid-flight (checkpoint/restore
-    across hosts with and without a TPU).
+    blocks need no phase carry).  The carry is plain arrays, so a stream
+    checkpoints and restores on any platform.
     """
     y = jnp.asarray(llrs, jnp.float32)
     if y.ndim != 3 or y.shape[-1] != code.n:
         raise ValueError(f"expected (B, T, {code.n}) LLR steps; "
                          f"got {y.shape}")
-    if _resolve_backend(backend) == "pallas":
-        from .pallas.viterbi_kernel import (_pick_t_tile, _stream_block_planes,
-                                            butterfly_signs, default_interpret)
-        pm, dec, bits = _stream_block_planes(
-            y, state.pm, state.dec, jnp.asarray(butterfly_signs(code)),
-            k=code.k, s_count=code.states, n=code.n,
-            t_tile=_pick_t_tile(code.states, y.shape[1]),
-            interpret=default_interpret())
-        return ViterbiStreamState(pm=pm, dec=dec), bits
     _, exp_sign = _trellis(code)
     pm, dec, bits = _viterbi_stream_block(
         y, state.pm, state.dec, jnp.asarray(exp_sign),
@@ -494,14 +486,10 @@ def viterbi_decode_parallel(code: ConvCode, llrs, chunk: int = 512,
     # cold-acquisition property the streaming window relies on) -- so
     # the uniform-vs-pinned distinction washes out within the margin.
     if _resolve_backend(backend) == "pallas":
-        from .pallas.viterbi_kernel import (_decode_planes, _pick_t_tile,
-                                            butterfly_signs,
-                                            default_interpret)
-        bits = _decode_planes(
-            wins, jnp.asarray(butterfly_signs(code)), k=code.k,
-            s_count=code.states, n=code.n, terminate=False,
-            t_tile=_pick_t_tile(code.states, span), fuse=True,
-            interpret=default_interpret())       # (B*P, span)
+        from .pallas.viterbi_kernel import _decode_steps, butterfly_signs
+        bits = _decode_steps(
+            wins, jnp.asarray(butterfly_signs(code)), k=code.k, n=code.n,
+            terminate=False)                     # (B*P, span)
     else:
         _, exp_sign = _trellis(code)
         bits = _viterbi(wins, jnp.asarray(exp_sign), code.k, code.states,
@@ -511,32 +499,20 @@ def viterbi_decode_parallel(code: ConvCode, llrs, chunk: int = 512,
     return bits.reshape(lead + (t,))
 
 
-def make_stream_soft_fn(code: ConvCode, m: int, labeling: str = "scd",
-                        backend: str = "auto"):
+def make_stream_soft_fn(code: ConvCode, m: int, labeling: str = "scd"):
     """fn(state, soft) -> (state', bits): the whole streaming-FEC block
     (constellation LLRs -> depuncture -> ACS scan -> windowed traceback)
-    as ONE compiled launch.
+    as ONE compiled program.
 
-    Fusing matters beyond kernel fusion: only the (B, S_sym) soft block
-    goes up and the (B, T) int8 bits come down -- the intermediate LLR
-    planes never cross the host boundary (through this environment's
-    relay a per-block LLR fetch alone costs ~100x the compute).
+    Only the (B, S_sym) soft block goes up and the (B, T) int8 bits come
+    down -- the intermediate LLR planes never cross the host boundary.
     ``soft`` must carry a whole number of (puncture-period- and
     symbol-aligned) trellis steps; runtime/fec.StreamFecDecoder does the
-    chunk bookkeeping.  On TPU the trellis recursion runs in the Mosaic
-    kernel (ops/pallas/viterbi_kernel.py) inside the same launch.
+    chunk bookkeeping.
     """
     _, exp_sign = _trellis(code)
     exp = jnp.asarray(exp_sign)
     k, s_count = code.k, code.states
-    use_pallas = _resolve_backend(backend) == "pallas"
-    if use_pallas:
-        from .pallas.viterbi_kernel import (_pick_t_tile,
-                                            _stream_block_planes,
-                                            butterfly_signs,
-                                            default_interpret)
-        exp_bf = jnp.asarray(butterfly_signs(code))
-        interp = default_interpret()
 
     @jax.jit
     def step(state: ViterbiStreamState, soft):
@@ -544,15 +520,8 @@ def make_stream_soft_fn(code: ConvCode, m: int, labeling: str = "scd",
         wire = llr.reshape(soft.shape[0], -1)
         full = depuncture(code, wire)
         steps = full.reshape(soft.shape[0], -1, code.n)
-        if use_pallas:
-            pm, dec, bits = _stream_block_planes.__wrapped__(
-                steps, state.pm, state.dec, exp_bf,
-                k=k, s_count=s_count, n=code.n,
-                t_tile=_pick_t_tile(s_count, steps.shape[1]),
-                interpret=interp)
-        else:
-            pm, dec, bits = _viterbi_stream_block.__wrapped__(
-                steps, state.pm, state.dec, exp, k, s_count)
+        pm, dec, bits = _viterbi_stream_block.__wrapped__(
+            steps, state.pm, state.dec, exp, k, s_count)
         return ViterbiStreamState(pm=pm, dec=dec), bits
 
     return step
@@ -569,8 +538,8 @@ def viterbi_decode(code: ConvCode, llrs, terminate: bool = True,
         input); length must cover a whole number of trellis steps.
       terminate: the stream ends with K-1 zero flush bits (frame mode):
         the final state is pinned to 0 and flush bits are stripped.
-      backend: 'auto' (Mosaic kernel on TPU, XLA scan elsewhere), 'xla',
-        or 'pallas'; decoded bits are identical either way.
+      backend: 'auto' (the Pallas kernel on a GPU, the XLA scan on the
+        CPU), 'xla', or 'pallas'; decoded bits are identical either way.
 
     Returns:
       (..., N) int8 decoded information bits, N = T - (K-1) if terminated.
@@ -647,7 +616,6 @@ def psk_llrs(m: int, soft, scale: float | None = None,
     Returns:
       (..., S, log2(m)) float32 LLR planes.
     """
-    from ..utils.transfer import to_device
     from . import slicers
     from .framesync import psk_points
 
@@ -656,7 +624,7 @@ def psk_llrs(m: int, soft, scale: float | None = None,
     pts = psk_points(np.arange(m), m)
     labels = slicers.bit_labels(m, labeling)
     if isinstance(soft, np.ndarray):
-        soft = to_device(soft)
+        soft = jnp.asarray(soft)
     llr = _llr_kernel(soft,
                       jnp.asarray(np.ascontiguousarray(pts.real, np.float32)),
                       jnp.asarray(np.ascontiguousarray(pts.imag, np.float32)),

@@ -1,12 +1,12 @@
 """Sliding-window least-squares line fit evaluated at the newest point.
 
-TPU-native re-derivation of the reference's ``LinearFit`` class
+Array-native re-derivation of the reference's ``LinearFit`` class
 (``cpp/psk_soft.cpp:35-185``, decl ``cpp/psk_soft.h:33-53``): a window of the
 last ``n`` uniformly spaced points is fit with a line and the fit is evaluated
 at the newest point, making it a trend-following smoother whose slope absorbs
 carrier-frequency offset.
 
-Design notes (TPU-first, not a translation):
+Design notes (array-first, not a translation):
 
 * The reference maintains incremental ``ySum``/``xySum`` accumulators with a
   periodic full recompute every 2^20 points to bound FP drift
@@ -19,7 +19,7 @@ Design notes (TPU-first, not a translation):
 * In steady state the fit-at-newest-point is a *linear* function of the
   window, i.e. an FIR filter.  :func:`endpoint_fir_weights` returns those
   weights so the block-parallel pipeline can evaluate the tracker as a
-  convolution (an MXU-friendly matmul) instead of a sequential recursion.
+  convolution instead of a sequential recursion.
 
 Closed forms (``cpp/psk_soft.cpp:135-185``), with x_i = i for i in [0, p):
 

@@ -6,9 +6,9 @@ sample selection alone (cpp/psk_soft.cpp:442-465).  A matched filter
 maximizes decision-point SNR for shaped pulses; timing recovery then runs on
 the *filtered* signal and its energy peak is the filter's correlation peak.
 
-TPU notes: the complex FIR is evaluated as a real conv over stacked re/im
-planes with `lax.conv_general_dilated` (channels = batch, planes = features),
-which XLA maps onto the MXU.  Streaming uses an explicit (ntaps-1)-sample
+The complex FIR is evaluated as a real conv over stacked re/im planes with
+`lax.conv_general_dilated` (channels = batch, planes = features), at
+HIGHEST precision so no TF32 rounding enters.  Streaming uses an explicit (ntaps-1)-sample
 input tail carried across blocks (overlap-save).
 """
 
@@ -81,6 +81,7 @@ def apply_fir(x: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
         planes.reshape(-1, 1, x.shape[-1]), k,
         window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=jax.lax.Precision.HIGHEST,     # samples/taps not TF32-exact
     ).reshape(xf.shape[0], 2, -1)
     y = jax.lax.complex(out[:, 0], out[:, 1])
     return y.reshape(lead + (y.shape[-1],))

@@ -8,7 +8,7 @@ derotation first: estimate with :func:`psk_soft_tpu.eval.cfo.acquire_cfo`
 (coarse, M-th-power spectrum) or ``cfo_from_phase`` (fine, from the phase
 port), then mix the block down with this op before the demod.
 
-TPU shape: pure elementwise VPU work on the same (T, C) planes the kernel
+Shape: pure elementwise work on the same (T, C) planes the steady demod
 eats; XLA fuses it into the neighbouring ops.  Streaming: the returned
 ``phase_end`` is the next block's ``phase0`` (wrapped, so precision never
 drifts).

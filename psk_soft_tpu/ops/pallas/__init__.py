@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot sample-rate path."""
+"""Pallas kernels for NVIDIA GPUs (Triton route)."""

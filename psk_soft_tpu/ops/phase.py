@@ -1,6 +1,6 @@
 """Carrier-phase recovery primitives: M-th-power phase and unwrapping.
 
-TPU-native recast of C3 in the reference (``cpp/psk_soft.cpp:471-500,
+Array-native recast of C3 in the reference (``cpp/psk_soft.cpp:471-500,
 592-603``): per selected symbol, ``thisPhase = arg(sample^M)`` removes the
 PSK modulation; the phase is unwrapped against the running estimate
 (``numWraps = round((phaseEstimate - thisPhase)/2pi)``), fed to the sliding
@@ -76,12 +76,10 @@ def block_unwrap(raw: jnp.ndarray, prev: jnp.ndarray, axis: int = -1) -> jnp.nda
       prev: carried last unwrapped phase; broadcastable to raw with the
         scanned axis removed.
     """
-    raw = jnp.moveaxis(raw, axis, -1)
-    first = jnp.expand_dims(prev, -1)
-    d = jnp.diff(jnp.concatenate([first, raw], axis=-1), axis=-1)
-    adj = jnp.cumsum(jnp.round(d / TWO_PI), axis=-1)
-    out = raw - adj * TWO_PI
-    return jnp.moveaxis(out, -1, axis)
+    first = jnp.expand_dims(prev, axis)
+    d = jnp.diff(jnp.concatenate([first, raw], axis=axis), axis=axis)
+    adj = jnp.cumsum(jnp.round(d / TWO_PI), axis=axis)
+    return raw - adj * TWO_PI
 
 
 def wrap_to_pi(x: jnp.ndarray) -> jnp.ndarray:
@@ -99,34 +97,41 @@ UNWRAP_TREND_LEN = 9
 # Trend decimation: one trend reference per D symbols.  The unwrap stays
 # correct as long as the phase moves < pi across a group of D symbols --
 # still far beyond any M-th-power tracker's lock range -- while the prefix
-# sum, the trend conv, and two of the three atan2 passes shrink by D.
+# sum, the trend window sums, and two of the three atan2 passes shrink by D.
 UNWRAP_TREND_STRIDE = 4
 
 
 def causal_complex_ma(phases: jnp.ndarray, k: int, stride: int = 1,
-                      pad_left: int | None = None) -> jnp.ndarray:
+                      pad_left: int | None = None,
+                      axis: int = -1) -> jnp.ndarray:
     """Causal moving average of exp(i*phase) over the last k entries,
     optionally strided (one output per ``stride`` inputs, anchored at each
-    group's last element).
+    group's last element), along ``axis``.
 
-    phases: (..., T) with T divisible by stride.  Head entries average over
-    what is available.  Returns the trend *angle* (..., T // stride).
+    The length along ``axis`` must be divisible by stride.  Head entries
+    average over what is available.  Returns the trend *angle*, with
+    ``length // stride`` entries along ``axis``.  The window sums are
+    shifted-slice adds in exact float32 (no convolution, so no TF32).
     """
-    c_re = jnp.cos(phases)
-    c_im = jnp.sin(phases)
-    ones = jnp.ones((1, 1, k), c_re.dtype)
-    lead = phases.shape[:-1]
-    t = phases.shape[-1]
+    axis = axis % phases.ndim
+    t = phases.shape[axis]
     lpad = k - stride if pad_left is None else pad_left
+    g = (t + lpad - k) // stride + 1
 
-    def conv(v):
-        v2 = v.reshape(-1, 1, t)
-        out = jax.lax.conv_general_dilated(
-            v2, ones, window_strides=(stride,), padding=[(lpad, 0)],
-            dimension_numbers=("NCH", "OIH", "NCH"))
-        return out.reshape(lead + (-1,))
+    def window_sum(v):
+        if lpad:
+            zshape = list(v.shape)
+            zshape[axis] = lpad
+            v = jnp.concatenate([jnp.zeros(zshape, v.dtype), v], axis=axis)
+        acc = None
+        for i in range(k):
+            term = jax.lax.slice_in_dim(v, i, i + (g - 1) * stride + 1,
+                                        stride=stride, axis=axis)
+            acc = term if acc is None else acc + term
+        return acc
 
-    return jnp.arctan2(conv(c_im), conv(c_re))
+    return jnp.arctan2(window_sum(jnp.sin(phases)),
+                       window_sum(jnp.cos(phases)))
 
 
 def robust_block_unwrap(raw: jnp.ndarray, axis: int = -1,
@@ -146,23 +151,23 @@ def robust_block_unwrap(raw: jnp.ndarray, axis: int = -1,
         u[t] = unwrap(trend)[g(t)] + wrap_to_pi(raw[t] - trend[g(t)])
 
     where g(t) is t's trend group (one trend value per ``stride`` symbols).
-    u[t] === raw[t] (mod 2pi) exactly, like any unwrap.
+    u[t] === raw[t] (mod 2pi) exactly, like any unwrap.  Works along
+    ``axis`` in place (time-major callers pass axis=0; no transpose).
     """
-    raw = jnp.moveaxis(raw, axis, -1)
-    t = raw.shape[-1]
+    axis = axis % raw.ndim
+    t = raw.shape[axis]
     pad = (-t) % stride
-    rawp = jnp.concatenate(
-        [jnp.broadcast_to(raw[..., :1], raw.shape[:-1] + (pad,)), raw],
-        axis=-1) if pad else raw
-    ang_dec = causal_complex_ma(rawp, k, stride=stride)   # (..., G)
-    unwrapped_dec = block_unwrap(ang_dec, ang_dec[..., 0], axis=-1)
-    g = unwrapped_dec.shape[-1]
-    full = lambda v: jnp.broadcast_to(
-        v[..., :, None], v.shape + (stride,)).reshape(v.shape[:-1]
-                                                      + (g * stride,))
-    u = full(unwrapped_dec) + wrap_to_pi(rawp - full(ang_dec))
-    u = u[..., pad:]
-    return jnp.moveaxis(u, -1, axis)
+    rawp = raw
+    if pad:
+        first = jax.lax.slice_in_dim(raw, 0, 1, axis=axis)
+        rawp = jnp.concatenate([jnp.repeat(first, pad, axis=axis), raw],
+                               axis=axis)
+    ang_dec = causal_complex_ma(rawp, k, stride=stride, axis=axis)
+    unwrapped_dec = block_unwrap(ang_dec, jnp.take(ang_dec, 0, axis=axis),
+                                 axis=axis)
+    u = (jnp.repeat(unwrapped_dec, stride, axis=axis)
+         + wrap_to_pi(rawp - jnp.repeat(ang_dec, stride, axis=axis)))
+    return jax.lax.slice_in_dim(u, pad, pad + t, axis=axis)
 
 
 def rewrap_offset(estimate: jnp.ndarray, m: int) -> jnp.ndarray:

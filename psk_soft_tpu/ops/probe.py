@@ -8,7 +8,7 @@ auto-configure (see the ``probe`` CLI subcommand and runtime/autocfo.py
 for the CFO half of the loop).
 
 Estimators (both are classical cyclostationary detectors, laid out
-TPU-first -- the heavy work is one batched FFT launch per bank; only
+array-first -- the heavy work is one batched FFT launch per bank; only
 O(band) magnitudes / O(1) scalars are fetched for the data-dependent
 peak logic, the framesync split):
 
@@ -93,7 +93,6 @@ def estimate_baud(x, sps_min: float = 2.0, sps_max: float = 64.0,
       search band -- < ~5 means "no usable baud line" (noise, CW, or
       constant-envelope data with no transitions).
     """
-    from ..utils.transfer import to_device
 
     arr = np.asarray(x) if isinstance(x, np.ndarray) else x
     one = arr.ndim == 1
@@ -107,7 +106,7 @@ def estimate_baud(x, sps_min: float = 2.0, sps_max: float = 64.0,
     if nfft is None:
         nfft = 1 << int(np.ceil(np.log2(max(t - 1, 2))))
     if isinstance(arr, np.ndarray):
-        dev = to_device(np.ascontiguousarray(arr, np.complex64))
+        dev = jnp.asarray(np.ascontiguousarray(arr, np.complex64))
     else:
         dev = arr
     mags = np.asarray(_baud_spectrum(dev.real.astype(jnp.float32),
@@ -159,7 +158,6 @@ def classify_psk(x, max_m: int = 8, nfft: int | None = None,
       (parabolically refined, aliasing caveat of eval/cfo.acquire_cfo
       applies), and that line's peak-to-median ratio.
     """
-    from ..utils.transfer import to_device
 
     if max_m not in _CANDIDATE_M:
         raise ValueError(f"max_m must be one of {_CANDIDATE_M}")
@@ -174,7 +172,7 @@ def classify_psk(x, max_m: int = 8, nfft: int | None = None,
     if nfft is None:
         nfft = 1 << int(np.ceil(np.log2(max(t, 2))))
     if isinstance(arr, np.ndarray):
-        dev = to_device(np.ascontiguousarray(arr, np.complex64))
+        dev = jnp.asarray(np.ascontiguousarray(arr, np.complex64))
     else:
         dev = arr
     mags = np.asarray(_power_spectra(dev.real.astype(jnp.float32),

@@ -5,18 +5,18 @@ stream at its configured samplesPerBaud (cpp/psk_soft.cpp serviceFunction);
 a bank of channels with heterogeneous native rates would need one component
 per rate.  GroupEngine already buckets exact-config duplicates; this
 resampler removes the restriction entirely by converting every channel to
-the bank's common sps on device, so ONE fused kernel serves channels whose
+the bank's common sps on device, so ONE steady program serves channels whose
 native rates differ per channel (and even fractionally, e.g. sps 7.3).
 
-TPU design: a quantized-phase polyphase interpolation bank over time-major
+Design: a quantized-phase polyphase interpolation bank over time-major
 (T, C) planes.  Output sample n of channel c reads K input rows at
 ``floor(pos)`` with ``pos = pos0[c] + n * ratio[c]``; the K tap values come
 from a (P, K) windowed-sinc table indexed by the fractional part (with
 linear interpolation between adjacent phase rows).  Everything is
 static-shape: the per-(n, c) row indices are data, not shapes, so the whole
 block lowers to K (or 2K) `take_along_axis` gathers + fused multiply-adds
--- bandwidth-bound VPU work, which is the right cost model for a frontend
-that feeds the MXU-heavy demod kernel.  Ragged per-channel consumption
+-- bandwidth-bound elementwise work, the right cost model for a frontend
+that feeds the demod.  Ragged per-channel consumption
 bookkeeping stays on the HOST (runtime/resampler.py), exactly like the
 deframer: the device sees fixed shapes every block.
 """
@@ -120,10 +120,9 @@ def uniform_poly_matrix(num: int, den: int, taps_per_phase: int = 8,
     ``y[q*den + j] = sum_t S[j, t] * x[q*num + t]`` with the exact
     fractional phases (no table quantization, unlike the gather path).
 
-    This is the MXU form: when every channel shares one ratio, the whole
-    resampler is two reshapes + one einsum against this matrix -- zero
-    gathers -- the same banded-matmul recast the demod kernel uses for its
-    sliding sums (docs/DESIGN.md).
+    This is the matmul form: when every channel shares one ratio, the
+    whole resampler is two reshapes + one einsum against this matrix --
+    zero gathers.
     """
     if num <= 0 or den <= 0:
         raise ValueError("num/den must be positive")
@@ -180,9 +179,10 @@ def resample_block_uniform(x_re: jnp.ndarray, x_im: jnp.ndarray,
 
     w_re = windows(x_re)
     w_im = windows(x_im)
-    y_re = jnp.einsum("jt,qtc->qjc", S, w_re,
+    hp = jax.lax.Precision.HIGHEST        # taps/samples not TF32-exact
+    y_re = jnp.einsum("jt,qtc->qjc", S, w_re, precision=hp,
                       preferred_element_type=jnp.float32)
-    y_im = jnp.einsum("jt,qtc->qjc", S, w_im,
+    y_im = jnp.einsum("jt,qtc->qjc", S, w_im, precision=hp,
                       preferred_element_type=jnp.float32)
     C = x_re.shape[1]
     return y_re.reshape(Q * den, C), y_im.reshape(Q * den, C)

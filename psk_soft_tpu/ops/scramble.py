@@ -1,4 +1,4 @@
-"""Scrambling / energy dispersal: LFSR sequences, TPU-first.
+"""Scrambling / energy dispersal: LFSR sequences, array-first.
 
 Extension beyond the reference: deployed PSK links scramble the bit stream
 (energy dispersal / DC balance) and the receive chain must descramble it;
@@ -10,8 +10,8 @@ components.  Two standard constructions:
   linear over GF(2), so a length-L keystream is a *linear map* of the
   r-bit seed: ks = seed @ K (mod 2) with a host-precomputed (r, L) basis
   matrix -- on device that is one int8 matmul with a parity reduction,
-  i.e. keystream generation for a whole batch of frames is MXU work, not
-  a sequential register walk.
+  i.e. keystream generation for a whole batch of frames is matmul work,
+  not a sequential register walk.
 - **Multiplicative (self-synchronizing)**: the *descrambler* is
   feed-forward -- y[n] = x[n] ^ x[n-t1] ^ x[n-t2] -- so it is tap-count
   static-shifted XOR planes over the whole stream (one launch, any batch);
@@ -137,7 +137,9 @@ def keystream(lfsr: Lfsr, length: int) -> np.ndarray:
 
 @jax.jit
 def _xor_keystream(bits, seeds, basis):
-    # GF(2) matmul on the MXU: parity of the int accumulation.
+    # GF(2) matmul: parity of the integer accumulation.  0/1 operands are
+    # exact in TF32 and the sums exact in float32, so default precision
+    # is exact here.
     ks = (seeds.astype(jnp.float32) @ basis.astype(jnp.float32))
     ks = ks.astype(jnp.int32) & 1
     return (bits.astype(jnp.int32) ^ ks).astype(jnp.int8)
@@ -151,7 +153,7 @@ def additive_scramble(lfsr: Lfsr, bits, seeds=None) -> jnp.ndarray:
     plane of per-row register states (frame-synchronous operation with
     per-frame seeds); default = the LFSR's configured seed broadcast to
     every row.  Keystream generation is one (rows, r) x (r, L) GF(2)
-    matmul (MXU) from the host-precomputed basis.
+    matmul from the host-precomputed basis.
     """
     b = jnp.asarray(bits)
     l = b.shape[-1]

@@ -119,9 +119,8 @@ def slice_code_dynamic(m_size: jnp.ndarray, soft: jnp.ndarray) -> jnp.ndarray:
     """Packed symbol code with a *traced* per-element constellation size.
 
     Branch-free: each branch produces a packed symbol code and the traced M
-    selects -- the same structure the fused Mosaic kernel uses
-    (ops/pallas/demod_kernel.py C6 stage).  ``m_size`` broadcasts against
-    ``soft``.
+    selects (the mixed-mode steady step uses it, models/full.py).
+    ``m_size`` broadcasts against ``soft``.
     """
     m = jnp.broadcast_to(m_size, soft.shape)
     code2 = (soft.real < 0).astype(jnp.int32)

@@ -1,6 +1,6 @@
 """Symbol-timing recovery: windowed max-energy decision-sample selection.
 
-TPU-native recast of the reference's sliding deque + incremental energy bins
+Array-native recast of the reference's sliding deque + incremental energy bins
 (C2: ``cpp/psk_soft.cpp:442-467, 568-584, 619-636``).  The reference keeps the
 last ``numAvg*sps`` samples, accumulates per-sample energy into
 ``symbolEnergy[sps]`` bins keyed by intra-symbol index, picks
@@ -8,7 +8,7 @@ last ``numAvg*sps`` samples, accumulates per-sample energy into
 symbol's energies (sliding window) with a periodic full resync every 2^20
 symbols against FP drift.
 
-Key observation for the TPU: the sliding accumulation is a *windowed
+Key observation for a parallel device: the sliding accumulation is a *windowed
 segmented sum* with no sequential dependence at all.  For symbol-aligned data
 ``E[k, j] = |x[k*sps + j]|^2``, the bin state the reference holds when input
 symbol ``k + numAvg - 1`` completes is exactly
@@ -42,7 +42,8 @@ def symbol_energy_rows(xs: jnp.ndarray) -> jnp.ndarray:
     return (xs.real * xs.real + xs.imag * xs.imag).astype(jnp.float32)
 
 
-def windowed_bin_sums(e_rows: jnp.ndarray, num_avg: int) -> jnp.ndarray:
+def windowed_bin_sums(e_rows: jnp.ndarray, num_avg: int,
+                      axis: int = -2) -> jnp.ndarray:
     """Rolling sum of energy rows over a forward window of num_avg symbols.
 
     Implemented as cumsum-diff: O(1) per output instead of the O(num_avg)
@@ -53,20 +54,22 @@ def windowed_bin_sums(e_rows: jnp.ndarray, num_avg: int) -> jnp.ndarray:
     relative error ~R*eps over a block).
 
     Args:
-      e_rows: (..., R, sps) energies for R = S + num_avg - 1 consecutive
-        symbols (carry rows prepended to the block's rows).
+      e_rows: energies for R = S + num_avg - 1 consecutive symbols (carry
+        rows prepended to the block's rows) along ``axis``: (..., R, sps)
+        channel-major, or (R, sps, C) time-major with ``axis=0``.
       num_avg: window length in symbols.
     Returns:
-      (..., S, sps): W[o] = sum(e_rows[o:o+num_avg]).
+      The same layout with S rows: W[o] = sum(e_rows[o:o+num_avg]).
     """
     if num_avg == 1:
         return e_rows
-    s = e_rows.shape[-2] - (num_avg - 1)
-    cs = jnp.cumsum(e_rows, axis=-2)
-    upper = cs[..., num_avg - 1:, :]                     # (..., S, sps)
-    lower = cs[..., : s - 1, :]
-    zero = jnp.zeros_like(upper[..., :1, :])
-    return upper - jnp.concatenate([zero, lower], axis=-2)
+    r = e_rows.shape[axis]
+    s = r - (num_avg - 1)
+    cs = jnp.cumsum(e_rows, axis=axis)
+    upper = jax.lax.slice_in_dim(cs, num_avg - 1, r, axis=axis)
+    lower = jax.lax.slice_in_dim(cs, 0, s - 1, axis=axis)
+    zero = jnp.zeros_like(jax.lax.slice_in_dim(upper, 0, 1, axis=axis))
+    return upper - jnp.concatenate([zero, lower], axis=axis)
 
 
 def windowed_bin_sums_direct(e_rows: jnp.ndarray, num_avg: int) -> jnp.ndarray:
@@ -85,7 +88,7 @@ def windowed_bin_sums_direct(e_rows: jnp.ndarray, num_avg: int) -> jnp.ndarray:
 
 
 def select_decision_samples_interp(s_flat: jnp.ndarray, w: jnp.ndarray,
-                                   sps: int):
+                                   sps: int, axis: int = -1):
     """Fractional-timing refined decision (feed-forward early-late).
 
     Circular first-harmonic (centroid) timing estimate: the intra-symbol
@@ -101,44 +104,58 @@ def select_decision_samples_interp(s_flat: jnp.ndarray, w: jnp.ndarray,
     boundaries via the flat signal).
 
     Args:
-      s_flat: (..., R*sps) flattened time-contiguous samples; window row o
-        starts at flat index o*sps.
-      w: (..., S, sps) windowed bin sums.
-    Returns (sample_index (..., S) int32, decision (..., S) complex64).
+      s_flat: flattened time-contiguous samples; window row o starts at
+        flat index o*sps.  (..., R*sps) channel-major, or (R*sps, C)
+        time-major with ``axis=1``.
+      w: windowed bin sums, (..., S, sps), or (S, sps, C) time-major.
+      axis: the bin axis of ``w`` (-1 channel-major, 1 time-major); the
+        symbol axis precedes it and is also the time axis of ``s_flat``.
+    Returns (sample_index int32, decision complex64), shaped like ``w``
+    without its bin axis.
     """
-    ang = 2.0 * jnp.pi * jnp.arange(sps, dtype=jnp.float32) / sps
-    zr = jnp.sum(w * jnp.cos(ang), axis=-1)
-    zi = jnp.sum(w * jnp.sin(ang), axis=-1)
+    axis = axis % w.ndim
+    t_axis = axis - 1
+    bshape = [1] * w.ndim
+    bshape[axis] = sps
+    ang = (2.0 * jnp.pi * jnp.arange(sps, dtype=jnp.float32) / sps
+           ).reshape(bshape)
+    zr = jnp.sum(w * jnp.cos(ang), axis=axis)
+    zi = jnp.sum(w * jnp.sin(ang), axis=axis)
     p = jnp.arctan2(zi, zr) * (sps / (2.0 * jnp.pi))      # (-sps/2, sps/2]
     p = jnp.where(p < -0.5, p + sps, p)                   # [-0.5, sps-0.5)
     p = jnp.where(p > sps - 0.5, p - sps, p)
     b = jnp.round(p).astype(jnp.int32) % sps              # index actually used
     i0 = jnp.floor(p)
     frac = (p - i0).astype(jnp.float32)
-    s = w.shape[-2]
-    raw_base = jnp.arange(s, dtype=jnp.int32) * sps + i0.astype(jnp.int32)
+    s = w.shape[t_axis]
+    rshape = [1] * p.ndim
+    rshape[t_axis] = s
+    row = jnp.arange(s, dtype=jnp.int32).reshape(rshape)
+    raw_base = row * sps + i0.astype(jnp.int32)
     # Row 0 with a negative fractional offset would reach one sample before
     # the flat buffer; fall back to the on-sample decision there rather than
     # interpolating with an unrelated sample.
     oob = raw_base < 0
     frac = jnp.where(oob, 0.0, frac)
-    base = jnp.clip(raw_base, 0, s_flat.shape[-1] - 2)
-    s0 = jnp.take_along_axis(s_flat, base, axis=-1)
-    s1 = jnp.take_along_axis(s_flat, base + 1, axis=-1)
+    base = jnp.clip(raw_base, 0, s_flat.shape[t_axis] - 2)
+    s0 = jnp.take_along_axis(s_flat, base, axis=t_axis)
+    s1 = jnp.take_along_axis(s_flat, base + 1, axis=t_axis)
     sel = (s0 * (1.0 - frac) + s1 * frac).astype(jnp.complex64)
     return b, sel
 
 
-def select_decision_samples(s_rows: jnp.ndarray, w: jnp.ndarray):
+def select_decision_samples(s_rows: jnp.ndarray, w: jnp.ndarray,
+                            axis: int = -1):
     """Pick the max-energy intra-symbol index and gather the decision sample.
 
     Args:
-      s_rows: (..., S, sps) complex symbol rows (block rows, carry-aligned so
-        row o is output symbol o).
-      w: (..., S, sps) windowed bin sums aligned with s_rows.
+      s_rows: complex symbol rows (block rows, carry-aligned so row o is
+        output symbol o): (..., S, sps), or (S, sps, C) time-major.
+      w: windowed bin sums aligned with s_rows.
+      axis: the bin axis (-1 channel-major, 1 time-major).
     Returns:
-      (sample_index (..., S) int32, decision (..., S) complex64).
+      (sample_index int32, decision complex64) without the bin axis.
     """
-    idx = jnp.argmax(w, axis=-1).astype(jnp.int32)
-    sel = jnp.take_along_axis(s_rows, idx[..., None], axis=-1)[..., 0]
-    return idx, sel
+    idx = jnp.argmax(w, axis=axis).astype(jnp.int32)
+    sel = jnp.take_along_axis(s_rows, jnp.expand_dims(idx, axis), axis=axis)
+    return idx, jnp.squeeze(sel, axis)

@@ -2,20 +2,22 @@
 
 The reference deploys as a CORBA executable per host, brokered by the
 REDHAWK domain manager (cpp/main.cpp:24-29; omniORB is control-plane only,
-SURVEY.md section 5).  TPU-native equivalent: every host runs the same
-program, ``jax.distributed.initialize`` forms the global device mesh, and
-the data plane is XLA collectives over ICI/DCN (parallel/sharded.py).
+SURVEY.md section 5).  Here one process per host drives all of that host's
+cards; ``jax.distributed.initialize`` joins the hosts' processes into one
+global device mesh, and the data plane is XLA collectives (NVLink within a
+host, the network between hosts; parallel/sharded.py).
 
-Typical use on an N-host slice:
+Typical use on N hosts:
 
     from psk_soft_tpu.parallel import launch
-    launch.initialize()                      # env-driven (TPU pods: no args)
+    launch.initialize()        # PSK_COORDINATOR / PSK_NUM_PROCESSES /
+                               # PSK_PROCESS_ID, or pass them explicitly
     mesh = launch.global_mesh(time=launch.num_hosts())
     run = make_sharded_demod(cfg, mesh, total_symbols)
 
 Lay the *time* axis across hosts only when streams are long enough that the
-seam halo (numAvg*sps samples) amortizes over DCN; the channel axis is
-communication-free and is the default host axis.
+seam halo (numAvg*sps samples) amortizes over the network; the channel
+axis is communication-free and is the default host axis.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def initialize(coordinator_address: Optional[str] = None,
     if process_id is None and "PSK_PROCESS_ID" in os.environ:
         process_id = int(os.environ["PSK_PROCESS_ID"])
     if coordinator_address is None and num_processes in (None, 1):
-        return  # single-process; TPU pods auto-configure via the TPU env
+        return  # one process drives all of this host's cards
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)

@@ -190,6 +190,7 @@ def _conv_valid(cat: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
         cat[:, None, :], w[None, None, :],
         window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=jax.lax.Precision.HIGHEST,     # phases are not TF32-exact
     )
     return out[:, 0, :]
 

@@ -1,14 +1,14 @@
-"""Multi-chip flagship: the fully-fused kernel sharded over the mesh.
+"""Multi-device flagship: the steady-state demod step sharded over a mesh.
 
-Two compositions of models/full.py's single-kernel pipeline:
+Two compositions of models/full.py's steady step:
 
 * **Channel sharding** (:func:`make_sharded_full_demod`): communication-free
-  (SURVEY.md section 2.5) -- each device runs the Mosaic kernel on its
-  channel slice with its own carry planes.  Scaling is linear up to ingest
+  (SURVEY.md section 2.5) -- each device runs the step on its channel
+  slice with its own carry planes.  Scaling is linear up to ingest
   bandwidth.
 * **Time + channel sharding** (:func:`make_time_sharded_full_demod`): one
   stream's time axis is split across devices too (BASELINE.json config 5).
-  Each shard runs the kernel *statelessly* over [left warm-up halo | own |
+  Each shard runs the step *statelessly* over [left warm-up halo | own |
   right lookahead halo] sample planes (two ``ppermute`` exchanges), discards
   the halo outputs, and the only cross-shard sequential quantity -- the
   absolute phase origin, a per-(shard, channel) multiple of 2pi -- is
@@ -28,8 +28,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import DemodConfig
-from ..models.full import FullOutputs, FullState, demod_block_full, _static_taps
-from ..ops.pallas import demod_kernel
+from ..models.full import (FullOutputs, FullState, _static_taps,
+                           demod_block_full, demod_full_tm, state_rows)
 from ..ops.phase import UNWRAP_TREND_LEN, TWO_PI
 
 
@@ -48,22 +48,19 @@ def shard_full_state(state: FullState, mesh: Mesh) -> FullState:
 
 
 def make_sharded_full_demod(cfg: DemodConfig, mesh: Mesh, *,
-                            s_tile: int = 256, in_scale: float = 1.0,
+                            in_scale: float = 1.0,
                             soft_i8_scale: float | None = None,
                             debug_ports: bool = True,
-                            pack_out: bool | None = None,
-                            interpret: bool = False):
+                            pack_out: bool | None = None):
     """Returns fn(state, x_re, x_im) -> (state, FullOutputs), with every
-    (.., C) plane sharded over the mesh's 'chan' axis.  C per device must be
-    a multiple of 128.
+    (.., C) plane sharded over the mesh's 'chan' axis (C divisible by the
+    axis size).
 
-    The chan axis is communication-free, so every kernel output profile
-    (int8 soft, packed bits, compiled-away debug planes) shards through
-    unchanged."""
-    body = functools.partial(demod_block_full, cfg, s_tile=s_tile,
-                             in_scale=in_scale, pack_out=pack_out,
-                             soft_i8_scale=soft_i8_scale,
-                             debug_ports=debug_ports, interpret=interpret)
+    The chan axis is communication-free, so every output profile (int8
+    soft, packed bits, omitted debug planes) shards through unchanged."""
+    body = functools.partial(demod_block_full, cfg, in_scale=in_scale,
+                             pack_out=pack_out, soft_i8_scale=soft_i8_scale,
+                             debug_ports=debug_ports)
     spec = P(None, "chan")
     state_specs = FullState(win_re=spec, win_im=spec, planes=spec)
     dbg = spec if debug_ports else None   # None prunes with the output leaf
@@ -88,11 +85,10 @@ def _shift_rows(v: jnp.ndarray, from_left: bool) -> jnp.ndarray:
 
 
 def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
-                                 total_symbols: int, *, s_tile: int = 256,
+                                 total_symbols: int, *,
                                  mixed_params=None, in_scale: float = 1.0,
-                                 soft_i8_scale: float | None = None,
-                                 interpret: bool = False):
-    """Time+channel-sharded single-kernel demod (see module docstring).
+                                 soft_i8_scale: float | None = None):
+    """Time+channel-sharded steady demod (see module docstring).
 
     Returns fn(x_re, x_im) -> (soft_re, soft_im, phase, bits, idx, valid)
     with (T, C) inputs sharded P('time','chan') and (S, C) outputs likewise.
@@ -100,7 +96,7 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
     are masked invalid.  With ``soft_i8_scale`` the soft planes come back
     int8 (quantized after the seam correction -- see the inline note).
 
-    Supports every kernel profile: matched filter (the streaming FIR's
+    Supports every steady-step profile: matched filter (the streaming FIR's
     filtered timeline lags raw by ``ntaps-1`` samples -- ops/matched_filter
     .streaming_filter overlap-save convention -- so the extra rows extend
     the *left* halo and the FF symbol grid is preserved), fractional
@@ -112,7 +108,7 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
     sps, num_avg, m, n = (cfg.sps, cfg.num_avg, cfg.constellation_size,
                           cfg.phase_avg)
     if sps <= 1:
-        raise ValueError("time-sharded full kernel supports sps > 1 only")
+        raise ValueError("time-sharded full demod supports sps > 1 only")
     taps = _static_taps(cfg)
     extra = (len(taps) - 1) if taps else 0
     mixed = mixed_params is not None
@@ -131,13 +127,8 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
     if n_time > 1 and s_loc * sps < max(lh, rh):
         raise ValueError(f"samples per time shard ({s_loc * sps}) must be "
                          f">= {max(lh, rh)}")
-    s_out = discard + s_loc + a1              # kernel outputs per shard
-    k_tile = min(s_tile, 256)
-    k_tile = max(k_tile, a1 + (-a1) % 8)      # kernel needs s_tile >= A-1
-    s_out_p = -(-s_out // k_tile) * k_tile    # pad to a tile multiple
-    pad_rows = (s_out_p - s_out) * sps
-    rs = demod_kernel.state_rows(n)
-    wsplit = a1 * sps + extra                 # kernel window-carry rows
+    rs = state_rows(n)
+    wsplit = a1 * sps + extra                 # steady window-carry rows
     if mixed:
         misc = (n - 1) + 2 * (UNWRAP_TREND_LEN - 1)
         m_arr = jnp.asarray(mixed_params.m, jnp.float32)
@@ -149,8 +140,7 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
         def assemble(v):
             left = _shift_rows(v[v.shape[0] - lh:], from_left=True)
             right = _shift_rows(v[:rh], from_left=False)
-            pad = jnp.zeros((pad_rows, c_loc), v.dtype)
-            return jnp.concatenate([left, v, right, pad], axis=0)
+            return jnp.concatenate([left, v, right], axis=0)
 
         ext_re = assemble(x_re)
         ext_im = assemble(x_im)
@@ -164,15 +154,13 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
         # phase-origin correction below, so keep a single int32 contract
         # across the differential/mixed/plain branches rather than a
         # per-branch int8/int32 mix.
-        soft_re, soft_im, phase, bits, idx, _ = demod_kernel.demod_full_tm(
-            win_re, win_im, xk_re, xk_im, planes0, sps=sps, num_avg=num_avg,
-            phase_avg=n, m=m, diff=cfg.differential, s_tile=k_tile,
-            mf_taps=taps, timing_interp=cfg.timing_interp, mixed=mixed,
-            in_scale=in_scale, pack_out=False, interpret=interpret)
+        soft_re, soft_im, phase, bits, idx, _ = demod_full_tm(
+            cfg, win_re, win_im, xk_re, xk_im, planes0, mixed=mixed,
+            in_scale=in_scale, pack_out=False)
 
         # --- recover the absolute phase origin per shard (multiple of 2pi,
         # relative to shard 0) from overlap outputs ---
-        # Kernel output row o corresponds to ext symbol o (the window's
+        # Output row o corresponds to ext symbol o (the window's
         # OLDEST symbol), so own outputs occupy rows [a1+discard,
         # a1+discard+s_loc).
         own0 = a1 + discard
@@ -195,7 +183,7 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
         from ..ops import slicers
         if mixed:
             # Per-channel: rotate + re-slice non-differential lanes, keep
-            # the kernel's packed bits on differential lanes.
+            # the step's packed bits on differential lanes.
             rot = -delta / mode_planes[0]
             rot_soft = soft * jax.lax.complex(
                 jnp.cos(rot), jnp.sin(rot))[None, :]
@@ -218,8 +206,8 @@ def make_time_sharded_full_demod(cfg: DemodConfig, mesh: Mesh,
         if soft_i8_scale is not None:
             # Quantize AFTER the seam correction: the phase-origin recovery
             # above needs the full-precision phase plane and a float soft
-            # rotation, so (unlike the single-chip kernel) int8 cannot ride
-            # the kernel's own epilogue here -- but the dominant cost at
+            # rotation, so (unlike the single-device step) int8 cannot ride
+            # the step's own epilogue here -- but the dominant cost at
             # bank scale, the device->host fetch, still drops to 2 bytes/
             # symbol/channel, matching the wire format exactly.
             s = float(soft_i8_scale)

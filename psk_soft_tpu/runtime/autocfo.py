@@ -21,7 +21,7 @@ closes that gap the way a production receiver does:
 
 The NCO runs in float64 on the host clock (wrapped ``(f*n) mod 1``), so
 precision never drifts over unbounded streams; device-resident planes are
-derotated on device (ops/mixer.derotate -- elementwise VPU work XLA fuses
+derotated on device (ops/mixer.derotate -- elementwise work XLA fuses
 into the neighbouring ops) with the host supplying the wrapped start phase.
 
 Works in front of any bank engine with the standard surface

@@ -3,7 +3,7 @@ input blocks through the polyphase DFT channelizer (ops/channelizer.py).
 
 This is the host-side bookkeeping twin of runtime/resampler.py: ragged
 wideband arrivals stage on the host; the device sees fixed-shape blocks.
-The channelizer's (rows, C) output IS the fused kernel's time-major plane
+The channelizer's (rows, C) output IS the steady step's time-major plane
 layout, so ``step_planes`` feeds FullKernelBatchEngine.push_planes with
 device-resident planes -- capture bytes to demodulated bits with zero host
 transposes and zero device->host round trips on the steady path.
@@ -16,6 +16,7 @@ single-stream).
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 
 from ..ops.channelizer import (channel_frequencies, channelize_block,
@@ -34,8 +35,6 @@ class ChannelizerFrontEnd:
     def __init__(self, channels: int, taps_per_branch: int = 8,
                  beta: float = 9.0, cutoff_scale: float = 1.0,
                  oversample: int = 1):
-        import jax.numpy as jnp
-
         if oversample not in (1, 2):
             raise ValueError(f"oversample must be 1 or 2, got {oversample}")
         self.channels = int(channels)
@@ -83,12 +82,10 @@ class ChannelizerFrontEnd:
         return out
 
     def _channelize(self, rows: int):
-        from ..utils.transfer import to_device
-
         if rows % self.oversample:
             raise ValueError(f"rows must be a multiple of "
                              f"oversample={self.oversample}")
-        x = to_device(self._take(rows // self.oversample * self.channels))
+        x = jnp.asarray(self._take(rows // self.oversample * self.channels))
         if self.oversample == 2:
             from ..ops.channelizer import channelize_block_os2
             self._carry, y = channelize_block_os2(self._taps, self._carry, x)

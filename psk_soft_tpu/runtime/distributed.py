@@ -15,7 +15,7 @@ Launch recipe (every host runs the same program):
     from psk_soft_tpu.runtime.distributed import DistributedBatchEngine
 
     launch.initialize()          # PSK_COORDINATOR / PSK_NUM_PROCESSES /
-                                 # PSK_PROCESS_ID env, or TPU pod auto
+                                 # PSK_PROCESS_ID env
     eng = DistributedBatchEngine(cfg, channels_global=4096)
     eng.set_input_sri(sri)
     for block in my_ingest():            # (eng.channels, S*sps) local rows

@@ -10,6 +10,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import jax
 
 from ..config import DemodConfig
 from .streams import (SRI, Packet, PortStats, PORT_BITS, PORT_PHASE,
@@ -20,7 +21,7 @@ from .streams import (SRI, Packet, PortStats, PORT_BITS, PORT_PHASE,
 @dataclasses.dataclass
 class TMOutputs:
     """Raw kernel block outputs on their way to packet assembly: the
-    device-resident time-major planes exactly as the fused kernel wrote
+    device-resident time-major planes exactly as the steady step wrote
     them, plus the flush-path row validity mask and the soft_i8 scale.
 
     The packet fast path (BankAssembler.assemble_tm) fetches THESE planes
@@ -51,8 +52,8 @@ class BankAssembler:
                  skip_data: bool = False):
         self.cfg = cfg
         # skip_debug mirrors "phase/sampleIndex ports unconnected": those
-        # packets are never assembled (and the fused kernel never writes
-        # the planes -- demod_kernel debug_ports=False).  skip_data
+        # packets are never assembled (and the steady step never writes
+        # the planes -- debug_ports=False).  skip_data
         # extends the same connected-ports rule to soft/bits (the
         # reference guards EVERY push on connection state,
         # cpp/psk_soft.cpp:605-615): a frames-only consumer (device-tap
@@ -108,7 +109,6 @@ class BankAssembler:
     def assemble(self, out, eos: bool = False) -> dict[str, Packet]:
         """Channel-major DemodOutputs -> {port: Packet} with propagated SRI,
         symbol-accurate timestamps, and EOS marking."""
-        from ..utils.transfer import to_host
 
         sri = self.sri or SRI(stream_id="bank")
         out_sri = propagate_sri(self.cfg, sri)
@@ -122,11 +122,11 @@ class BankAssembler:
                             and p in (PORT_PHASE, PORT_SAMPLE_INDEX))}
             return pkts
         if self.skip_data:
-            valid = np.asarray(to_host(out.valid))
+            valid = np.asarray(jax.device_get(out.valid))
             v = valid[0] if valid.ndim > 1 else valid
             self._advance_clock(int(v.sum()), eos)
             return {}
-        out = to_host(out)
+        out = jax.device_get(out)
         valid = np.asarray(out.valid)
         v = valid[0] if valid.ndim > 1 else valid   # lockstep bank
         if not v.any():
@@ -160,7 +160,6 @@ class BankAssembler:
         payloads as :meth:`assemble` -- channel-major, identical dtypes,
         values, timestamps -- with host-side views/unpacks instead of
         device-side transforms."""
-        from ..utils.transfer import to_host
 
         fo = tm.fo
         if self.skip_data:
@@ -170,7 +169,7 @@ class BankAssembler:
             sv = (fo.soft_re.shape[0] if v is None else int(v.sum()))
             self._advance_clock(sv, eos)
             return {}
-        s_re, s_im, phase_p, packed, sidx_p = to_host(
+        s_re, s_im, phase_p, packed, sidx_p = jax.device_get(
             (fo.soft_re, fo.soft_im, fo.phase, fo.bits_packed,
              fo.sample_index))
         v = tm.valid_rows

@@ -69,10 +69,9 @@ class BatchEngine(_PipelinedPackets):
         """One device step over a staged (C, T) block; returns outputs.
         The distributed engine overrides ONLY this (global-mesh dispatch,
         local-row fetch); all staging/metrics/guard logic stays shared."""
-        from ..utils.transfer import to_device
 
         with self.step_timer.measure():
-            self._state, out = self._fn(self._state, to_device(x))
+            self._state, out = self._fn(self._state, jnp.asarray(x))
         return out
 
     def step(self):

@@ -1,4 +1,4 @@
-"""MixedKernelBatchEngine: one fused kernel over a heterogeneous
+"""MixedKernelBatchEngine: one steady step over a heterogeneous
 (M, differential) bank via per-channel mode planes (BASELINE config 4 in
 production).  Part of the runtime/engine facade (import from there).
 """
@@ -17,11 +17,11 @@ from .engine_full import FullKernelBatchEngine
 
 
 class MixedKernelBatchEngine(FullKernelBatchEngine):
-    """BASELINE config 4 in production: ONE fused kernel demodulates a
+    """BASELINE config 4 in production: ONE steady step demodulates a
     heterogeneous (M, differential) bank -- per-channel modes live in the
-    carry's mode planes (demod_kernel mixed mode), so a 1024-channel
-    BPSK/QPSK/8-PSK mix costs one kernel launch instead of one bucketed
-    launch per mode (compare GroupEngine, which buckets and is still
+    carry's mode planes (models/full mixed mode), so a 1024-channel
+    BPSK/QPSK/8-PSK mix costs one program instead of one bucketed
+    program per mode (compare GroupEngine, which buckets and is still
     required when sps/numAvg/phaseAvg themselves differ).
 
     Inherits the whole FullKernelBatchEngine surface: plane ingest
@@ -40,8 +40,7 @@ class MixedKernelBatchEngine(FullKernelBatchEngine):
     """
 
     def __init__(self, params, cfg: DemodConfig, channels: int,
-                 block_symbols: int = 512, s_tile: int = 256,
-                 interpret: bool = False, pipeline_depth: int = 0,
+                 block_symbols: int = 512, pipeline_depth: int = 0,
                  ingest_scale: float | None = None,
                  guard_nonfinite: bool = False,
                  debug_ports: bool = True,
@@ -55,7 +54,6 @@ class MixedKernelBatchEngine(FullKernelBatchEngine):
         if np.asarray(self.params.m).shape != (channels,):
             raise ValueError(f"params must carry {channels} channel modes")
         super().__init__(cfg, channels, block_symbols=block_symbols,
-                         s_tile=s_tile, interpret=interpret,
                          pipeline_depth=pipeline_depth,
                          ingest_scale=ingest_scale,
                          guard_nonfinite=guard_nonfinite,

@@ -23,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import jax
+import jax.numpy as jnp
 
 from ..ops.equalizer import EqConfig, eq_init, make_eq_fn
 
@@ -62,10 +64,8 @@ class EqFrontEnd:
         self._lock_streak = 0
 
     def _run(self, x):
-        from ..utils.transfer import to_device, to_host
-
         self._state, y, info = self._fn(self._state,
-                                        to_device(np.asarray(x,
+                                        jnp.asarray(np.asarray(x,
                                                              np.complex64)))
         self._last_cm_err = np.asarray(info["cm_err"], np.float32)
         if not self.eq_cfg.freeze:
@@ -79,7 +79,7 @@ class EqFrontEnd:
                     self._fn = make_eq_fn(self.eq_cfg)
             elif self.eq_cfg.mode == "cma":
                 self._lock_streak = 0
-        return to_host(y)
+        return jax.device_get(y)
 
     def _dd_gate_metric(self) -> float:
         """Lock metric for the CMA -> DD handover: the WORST channel's
@@ -168,8 +168,7 @@ class EqFrontEnd:
     @property
     def weights(self) -> np.ndarray:
         """(C, L) current per-channel equalizer taps."""
-        from ..utils.transfer import to_host
-        return to_host(self._state.w)
+        return jax.device_get(self._state.w)
 
     @property
     def cm_err(self) -> np.ndarray:
@@ -182,12 +181,11 @@ class EqFrontEnd:
         (the stream is discontinuous) but KEEP the converged weights --
         the channel response is a physical property that survives a data
         gap (use :meth:`reset_eq` to also forget the weights)."""
-        from ..utils.transfer import complex_zeros
 
         self._staged = [np.zeros(0, np.complex64)
                         for _ in range(self.engine.channels)]
         self._state = self._state._replace(
-            hist=complex_zeros(self._state.hist.shape))
+            hist=jnp.zeros(self._state.hist.shape, jnp.complex64))
         self.engine.reset()
 
     def reset_eq(self) -> None:

@@ -10,7 +10,7 @@ frames come back with ``info_bits`` filled in.
 Batching strategy: frames drain in bursts (one per channel per frame slot),
 so payloads are decoded in ONE Viterbi launch per drain, padded to
 power-of-two batch buckets to bound jit cache growth (the trellis scan
-dominates; padding rows are dead lanes the VPU processes for free).
+dominates; padding rows ride along in the same batched steps).
 
 Observability: the decoder re-encodes each decoded frame and counts
 disagreements with the received hard decisions -- ``corrected`` per frame
@@ -22,6 +22,8 @@ exceeds the code's plausible correction span are flagged ``suspect``
 
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..ops.fec import (CODE_K7, ConvCode, conv_encode, info_bits_for,
@@ -86,7 +88,6 @@ class FecFrameDecoder:
         info: (N, info_bits) int8; corrected: (N,) int32 re-encode
         disagreement counts.  One padded launch per power-of-two bucket.
         """
-        from ..utils.transfer import to_device, to_host
 
         payloads = np.ascontiguousarray(payloads, np.complex64)
         n = payloads.shape[0]
@@ -98,7 +99,7 @@ class FecFrameDecoder:
             payloads = np.concatenate(
                 [payloads, np.zeros((b - n,) + payloads.shape[1:],
                                     np.complex64)])
-        llr = psk_llrs(self._m, to_device(payloads), labeling=self.labeling)
+        llr = psk_llrs(self._m, jnp.asarray(payloads), labeling=self.labeling)
         llr = llr.reshape(b, self._code_bits)
         if self.interleave_rows is not None:
             from ..ops.interleave import deinterleave
@@ -109,7 +110,7 @@ class FecFrameDecoder:
         reenc = conv_encode(self.code, info, terminate=self.terminate)
         hard = (llr < 0)
         corrected = (reenc.astype(bool) ^ hard).sum(axis=-1)
-        info, corrected = to_host((info, corrected))
+        info, corrected = jax.device_get((info, corrected))
         return info[:n].astype(np.int8), corrected[:n].astype(np.int32)
 
     def _decode_frames(self, frames: list) -> list:
@@ -159,8 +160,7 @@ class StreamFecDecoder:
     depuncture -> ACS scan -> windowed traceback,
     ops/fec.make_stream_soft_fn) so only soft symbols go up and decoded
     bits come down -- intermediate LLR planes never cross the host
-    boundary (a per-block LLR fetch through this environment's relay
-    costs ~100x the compute).  Bits emerge ``depth`` trellis steps
+    boundary.  Bits emerge ``depth`` trellis steps
     behind the input (the standard survivor-merge argument; depth
     defaults to 10 constraint lengths, at which the output matches
     full-stream Viterbi -- gated in tests).
@@ -173,8 +173,7 @@ class StreamFecDecoder:
 
     def __init__(self, engine, code: ConvCode = CODE_K7, m=None,
                  depth: int | None = None, block_steps: int = 512,
-                 known_start: bool = True, labeling: str = "scd",
-                 backend: str = "auto"):
+                 known_start: bool = True, labeling: str = "scd"):
         self.labeling = labeling
         if isinstance(engine, int):
             self.engine = None
@@ -206,8 +205,7 @@ class StreamFecDecoder:
         self.block_steps = ((int(block_steps) + g - 1) // g) * g
         self._syms_per_block = self.block_steps // g * self._grain_syms
         self._known_start = bool(known_start)
-        self._fn = make_stream_soft_fn(code, self._m, labeling,
-                                       backend=backend)
+        self._fn = make_stream_soft_fn(code, self._m, labeling)
         self._buf = np.zeros((self._channels, 0), np.complex64)
         self._state = viterbi_stream_init(code, self._channels, self.depth,
                                           known_start=known_start)
@@ -231,11 +229,10 @@ class StreamFecDecoder:
             self._emit_chunk(self._syms_per_block)
 
     def _emit_chunk(self, syms: int) -> None:
-        from ..utils.transfer import to_device, to_host
         chunk, self._buf = self._buf[:, :syms], self._buf[:, syms:]
         self._state, bits = self._fn(self._state,
-                                     to_device(np.ascontiguousarray(chunk)))
-        self._append(to_host(bits))
+                                     jnp.asarray(np.ascontiguousarray(chunk)))
+        self._append(jax.device_get(bits))
 
     def _append(self, bits: np.ndarray) -> None:
         """Drop the pre-stream garbage (the first `depth` emitted steps)."""
@@ -253,11 +250,10 @@ class StreamFecDecoder:
         A sub-grain tail (fewer symbols than one puncture/symbol-aligned
         trellis step) cannot form a step and is dropped.
         """
-        from ..utils.transfer import to_host
         left = (self._buf.shape[1] // self._grain_syms) * self._grain_syms
         if left:
             self._emit_chunk(left)       # one distinct-shape launch at EOS
-        tail = to_host(viterbi_stream_flush(self.code, self._state))
+        tail = jax.device_get(viterbi_stream_flush(self.code, self._state))
         self._append(tail)
 
     def pop_bits(self) -> np.ndarray:

@@ -107,7 +107,6 @@ class FrameSyncer:
 
     def observe(self, soft: np.ndarray) -> list[Frame]:
         """Fold one (C, S) soft block; returns frames committed by it."""
-        from ..utils.transfer import to_device
 
         soft = np.asarray(soft, np.complex64)
         if soft.ndim != 2 or soft.shape[0] != self._channels:
@@ -115,7 +114,7 @@ class FrameSyncer:
                              f"got {soft.shape}")
         if soft.shape[1] == 0:
             return []
-        return self.observe_device(to_device(soft))
+        return self.observe_device(jnp.asarray(soft))
 
     def observe_device(self, soft) -> list[Frame]:
         """:meth:`observe` for an already-device-resident (C, S) complex

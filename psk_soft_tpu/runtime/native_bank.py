@@ -166,14 +166,14 @@ class NativeChannelBank:
 
 class NativePlaneBank:
     """Lockstep multichannel ring that deframes straight to TIME-MAJOR
-    re/im planes -- the fused kernel's (T, C) input layout.
+    re/im planes -- the steady step's (T, C) input layout.
 
     Interleaved frames are already time-major across channels, so the
     native stage is a stride-2 re/im split (no transpose), and a pop is two
     contiguous memcpys; the per-block host transposes of the channel-major
     path (engine x.real.T copies) disappear.  ``dtype`` selects the wire
     format: "f32" (complex64 frames) or "i16" (int16 I/Q, half the bytes --
-    pairs with demod_kernel's int16 ingest mode).
+    pairs with the steady step's int16 ingest mode).
 
     Overflow semantics match :class:`NativeChannelBank` (flush + flag).
     """

@@ -56,7 +56,7 @@ def build_receiver(cfg: DemodConfig, channels: int, *,
     """Assemble a complete receive chain.
 
     Args:
-      engine: "batch" (XLA feed-forward), "full" (fused-kernel flagship),
+      engine: "batch" (XLA feed-forward), "full" (the steady-state flagship),
         or "chain" (the ONE-LAUNCH fused chain, runtime/chain_engine.py:
         demod + seam sync + Viterbi + CRC as a single device program per
         block -- requires uw + fec, gray labeling, no sample-side

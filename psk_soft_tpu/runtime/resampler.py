@@ -9,14 +9,14 @@ static-shape (W, C) window every block and one compile for the bank's
 lifetime.  The output planes feed the batch engines directly
 (FullKernelBatchEngine.push_planes / BatchEngine), so a bank whose
 channels natively run at sps 7.3, 8.0 and 9.25 demodulates through ONE
-fused kernel at the common sps.
+steady step at the common sps.
 
 Position bookkeeping is rebased every block (the carry stays within one
 tap-span of zero), so float32 phase accumulation never loses precision
 over unbounded stream lengths.
 
 Fast paths: rational ratios auto-select the zero-gather banded-matmul
-(MXU) device step -- one matrix for a uniform bank, one per distinct
+device step -- one matrix for a uniform bank, one per distinct
 ratio (with its own anti-alias cutoff) for a grouped bank -- with a
 device-side output FIFO decoupling the rational cycle from block_out.
 The per-(n, c) gather step remains for irrational or live-retuned
@@ -87,10 +87,9 @@ class ResamplerBank:
             cutoff = min(1.0, 1.0 / self._max_ratio)
         self._table = jnp.asarray(kaiser_sinc_table(
             n_phases, self.K, cutoff=cutoff, beta=kaiser_beta))
-        # One shared RATIONAL ratio -> the zero-gather MXU form (banded
+        # One shared RATIONAL ratio -> the zero-gather matmul form (banded
         # polyphase matmul, ops/resample.resample_block_uniform): measured
-        # ~30x the gather form's rate on CPU and gathers are the TPU's
-        # weakest op.  uniform=None auto-detects; False keeps the gather
+        # ~30x the gather form's rate on CPU.  uniform=None auto-detects; False keeps the gather
         # path (needed for set_ratio); True asserts eligibility.
         self._uniform = None
         self._fifo = None

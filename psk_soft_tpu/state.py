@@ -56,18 +56,17 @@ class DemodState(NamedTuple):
 
 def init_state(cfg: DemodConfig, channel_shape: tuple = ()) -> DemodState:
     """Fresh converged-from-scratch state (optionally batched over channels)."""
-    from .utils.transfer import complex_ones, complex_zeros
     a1 = max(cfg.num_avg - 1, 0)
     return DemodState(
-        win_samples=complex_zeros(channel_shape + (a1, cfg.sps)),
+        win_samples=jnp.zeros(channel_shape + (a1, cfg.sps), jnp.complex64),
         win_energy=jnp.zeros(channel_shape + (a1, cfg.sps), jnp.float32),
         seen=jnp.zeros(channel_shape, jnp.int32),
         ring=jnp.zeros(channel_shape + (cfg.phase_avg,), jnp.float32),
         ring_pos=jnp.zeros(channel_shape, jnp.int32),
         ring_fill=jnp.zeros(channel_shape, jnp.int32),
         phase_est=jnp.zeros(channel_shape, jnp.float32),
-        last_any=complex_ones(channel_shape),
-        mf_tail=complex_zeros(channel_shape + (max(cfg.mf_ntaps - 1, 0),)),
+        last_any=jnp.ones(channel_shape, jnp.complex64),
+        mf_tail=jnp.zeros(channel_shape + (max(cfg.mf_ntaps - 1, 0),), jnp.complex64),
     )
 
 
@@ -123,24 +122,23 @@ def reconfigure(old_cfg: DemodConfig, new_cfg: DemodConfig,
     """
     state = jax.tree_util.tree_map(np.asarray, state)
     channel_shape = np.shape(state.seen)
-    from .utils.transfer import to_device
     new = init_state(new_cfg, channel_shape)
-    new = new._replace(last_any=to_device(state.last_any))
+    new = new._replace(last_any=jnp.asarray(state.last_any))
     mf_keys = ("matched_filter", "sps", "rrc_beta", "rrc_span")
     if all(getattr(old_cfg, k) == getattr(new_cfg, k) for k in mf_keys):
-        new = new._replace(mf_tail=to_device(state.mf_tail))
+        new = new._replace(mf_tail=jnp.asarray(state.mf_tail))
 
     # --- timing window ---
     resync = resync_window(old_cfg, new_cfg, state.win_samples, state.seen)
     if resync is None:
         new = new._replace(
-            win_samples=to_device(state.win_samples),
+            win_samples=jnp.asarray(state.win_samples),
             win_energy=jnp.asarray(state.win_energy),
             seen=jnp.asarray(state.seen),
         )
     else:
         ws, we, seen = resync
-        new = new._replace(win_samples=to_device(ws),
+        new = new._replace(win_samples=jnp.asarray(ws),
                            win_energy=jnp.asarray(we),
                            seen=jnp.asarray(seen))
 

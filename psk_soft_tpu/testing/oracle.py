@@ -2,7 +2,7 @@
 re-implemented in plain numpy, directly from the survey of
 cpp/psk_soft.cpp (NOT a code copy -- an independent executable spec).
 
-Used by tests to prove the TPU pipelines reproduce the reference recursion:
+Used by tests to prove the array pipelines reproduce the reference recursion:
 per-sample deque windows, incremental energy bins, first-max argmax,
 arg(sample^M), unwrap-against-estimate, incremental LinearFit with history
 re-wrap about M*2pi, differential decode, +pi/4 QPSK rotation.

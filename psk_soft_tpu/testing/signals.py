@@ -106,3 +106,44 @@ def sinc_interp(x: np.ndarray, t, half: int = 48) -> np.ndarray:
         m = m[(m >= 0) & (m < x.size)]
         out[i] = np.dot(x[m], np.sinc(ti - m))
     return out
+
+
+def plant_unaligned_frames(C, S, sps, fmt, code, crc, rng):
+    """TX plan for the chain/receiver benches and chip_smoke.py: K7+CRC16
+    coded frames on an UNALIGNED cadence over the S-periodic stream, planted with wraparound so at least one frame
+    straddles the block seam whenever S % cadence != 0.  Built batched
+    (one CRC matmul + one conv_encode over all C*k frames; per-frame
+    tx.build_frame would cost a device dispatch per frame).  No CFO so
+    the repeated bench block is phase-continuous.
+
+    Returns (starts, k_frames, infos (C,k,n_msg), x_np (C, S*sps),
+    n_info, n_msg)."""
+    import jax.numpy as jnp
+
+    from ..ops import tx
+    from ..ops.crc import append_crc
+    from ..ops.fec import conv_encode, info_bits_for
+
+    n_info = info_bits_for(code, fmt.payload * 2)
+    n_msg = n_info - crc.degree
+    cadence = max(fmt.separation, 104) + 1
+    k_frames = S // cadence
+    if k_frames == 0:
+        raise ValueError("block too short for one frame; raise --symbols")
+    starts = [(17 + j * cadence) % S for j in range(k_frames)]
+    infos = rng.integers(0, 2, (C, k_frames, n_msg)).astype(np.int8)
+    coded = np.asarray(conv_encode(code, jnp.asarray(
+        append_crc(crc, infos))), np.int8)          # (C, k, payload*nb)
+    pay_syms = tx.bits_to_symbols(4, coded, "gray")  # (C, k, payload)
+    idx = rng.integers(0, 4, (C, S))
+    uw_arr = np.asarray(fmt.uw, np.int64)
+    for j, s0 in enumerate(starts):
+        cols = (s0 + np.arange(fmt.frame_len)) % S      # wraparound plant
+        idx[:, cols[:fmt.uw_len]] = uw_arr[None, :]
+        idx[:, cols[fmt.uw_len:]] = pay_syms[:, j]
+    x_np = np.repeat(np.exp(1j * (2 * np.pi * idx / 4 + 0.4)),
+                     sps, axis=1).astype(np.complex64)
+    x_np += (0.01 * (rng.standard_normal(x_np.shape)
+                     + 1j * rng.standard_normal(x_np.shape))
+             ).astype(np.complex64)
+    return starts, k_frames, infos, x_np, n_info, n_msg

@@ -14,7 +14,7 @@ is two-fold:
    (e.g. when qualifying a new version).
 
 2. **Surface probe**: a fast smoke of every non-core JAX API this repo
-   leans on (Pallas/Mosaic incl. interpret mode, shard_map + collectives,
+   leans on (Pallas's Triton route in interpret mode, shard_map + collectives,
    static-size nonzero, reduce_window, top_k, donation-free scan carry),
    so a breaking change in a semi-private surface is caught in seconds,
    not twenty minutes into the suite.
@@ -67,18 +67,18 @@ def probe_surface() -> int:
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from jax.experimental import pallas as pl
     from jax.sharding import Mesh, PartitionSpec as P
 
-    # Pallas interpret-mode kernel (the CPU-mesh test path).
-    def k(x_ref, o_ref):
-        o_ref[:] = x_ref[:] * 2.0
+    # Pallas Triton-route kernel in interpret mode (the CPU test path of
+    # ops/pallas/viterbi_kernel.py: fori_loop, split/stack butterflies).
+    sys.path.insert(0, REPO)
+    from psk_soft_tpu.ops import fec
+    from psk_soft_tpu.ops.pallas.viterbi_kernel import viterbi_decode_pallas
 
-    x = jnp.arange(128, dtype=jnp.float32).reshape(1, 128)
-    y = pl.pallas_call(k, out_shape=jax.ShapeDtypeStruct((1, 128),
-                                                         jnp.float32),
-                       interpret=True)(x)
-    assert float(y[0, 1]) == 2.0
+    bits = jnp.asarray(np.arange(24) % 3 == 0, jnp.int8)[None]
+    llr = fec.hard_llrs(fec.conv_encode(fec.CODE_K3, bits))
+    got = viterbi_decode_pallas(fec.CODE_K3, llr)
+    assert np.array_equal(np.asarray(got), np.asarray(bits))
 
     # shard_map + psum/ppermute over a mesh (collective surface).
     devs = np.asarray(jax.devices())

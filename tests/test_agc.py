@@ -1,6 +1,6 @@
 """AGC + squelch front-end (ops/agc.py, runtime/agc.py).
 
-Gates: MXU block form == sequential chunk recurrence (numpy oracle),
+Gates: matmul block form == sequential chunk recurrence (numpy oracle),
 streaming == one-shot under any block split, host ragged path == device
 batched path, squelch semantics, and demod integration (a scaled input
 demodulates to the same constellation as an unscaled one)."""

@@ -121,10 +121,9 @@ def test_acquisition_replays_staged_data_exactly():
 def test_plane_mode_full_kernel():
     f = 0.025
     xs, syms = _bank(1024, f, seed=9)
-    xs = np.tile(xs, (32, 1))                 # kernel wants C % 128 == 0
+    xs = np.tile(xs, (32, 1))                 # 128 channels
     cfg = _cfg()
-    inner = FullKernelBatchEngine(cfg, 128, block_symbols=128, s_tile=64,
-                                  interpret=True)
+    inner = FullKernelBatchEngine(cfg, 128, block_symbols=128)
     eng = AutoCfoEngine(inner, acq_samples=2048)
     re = np.ascontiguousarray(xs.real.T)
     im = np.ascontiguousarray(xs.imag.T)
@@ -146,7 +145,6 @@ def test_plane_mode_full_kernel():
 
 def test_int16_planes_rejected():
     eng = AutoCfoEngine(FullKernelBatchEngine(_cfg(), 128, block_symbols=128,
-                                              s_tile=64, interpret=True,
                                               ingest_scale=1e-3))
     with pytest.raises(ValueError, match="int16"):
         eng.push_planes(np.zeros((64, 128), np.int16),

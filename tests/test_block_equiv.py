@@ -139,13 +139,13 @@ def test_scanned_full_matches_loop():
                    for k in range(3)])
     xi = np.stack([np.ascontiguousarray(np.roll(xs, k, axis=0).imag.T)
                    for k in range(3)])
-    fn = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn = make_full_demod_fn(cfg)
     st = st0
     parts = []
     for k in range(3):
         st, o = fn(st, jnp.asarray(xr[k]), jnp.asarray(xi[k]))
         parts.append(np.asarray(o.soft_re))
-    st2, so = make_scanned_full_demod_fn(cfg, s_tile=128, interpret=True)(
+    st2, so = make_scanned_full_demod_fn(cfg)(
         st0, jnp.asarray(xr), jnp.asarray(xi))
     np.testing.assert_allclose(np.asarray(so.soft_re),
                                np.stack(parts), atol=1e-6)

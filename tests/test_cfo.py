@@ -82,8 +82,7 @@ def test_cfo_from_engine_packet():
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     cfos = np.array([1e-4, -2e-4] * 64)            # cycles/sample
     xs = _bank(cfos, ns=1200, seed=3)
-    eng = FullKernelBatchEngine(cfg, 128, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, 128, block_symbols=128)
     fs = 1e6
     eng.set_input_sri(SRI(stream_id="cfo", xdelta=1.0 / fs))
     need = 128 * cfg.sps

@@ -21,7 +21,6 @@ from psk_soft_tpu.ops import tx
 from psk_soft_tpu.ops.crc import CRC16_CCITT
 from psk_soft_tpu.ops.fec import CODE_K7
 from psk_soft_tpu.ops.framesync import FrameFormat
-from psk_soft_tpu.utils.transfer import to_device
 
 
 import pytest
@@ -55,13 +54,12 @@ def test_chain_fn_decodes_planted_frames(m):
 
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x_np))
+    st_ff, _ = warm(st_ff, jnp.asarray(x_np))
     state = chain_init(fmt, C, full_from_ff(cfg, st_ff))
     x_re = jnp.asarray(np.ascontiguousarray(x_np.real.T))
     x_im = jnp.asarray(np.ascontiguousarray(x_np.imag.T))
 
-    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc))
     state, out = step(state, x_re, x_im)
     state, out = step(state, x_re, x_im)       # steady block
     assert isinstance(out, ChainOutputs)
@@ -101,10 +99,9 @@ def test_chain_fn_absorbs_cfo():
              ).astype(np.complex64)
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x_np))
+    st_ff, _ = warm(st_ff, jnp.asarray(x_np))
     state = chain_init(fmt, C, full_from_ff(cfg, st_ff))
-    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc))
     state, out = step(state, jnp.asarray(np.ascontiguousarray(x_np.real.T)),
                       jnp.asarray(np.ascontiguousarray(x_np.imag.T)))
     assert np.asarray(out.found).all()
@@ -126,8 +123,7 @@ def test_chain_fn_variable_frame_counts():
                       threshold=0.7)
     n_msg = chain_msg_bits(fmt, code, crc)
     k = 3
-    step = jax.jit(make_chain_fn(cfg, fmt, code, k, crc=crc,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, code, k, crc=crc))
     a1 = cfg.num_avg - 1
     state = None
     for blk, n_frames in enumerate([2, 0, 1]):
@@ -146,7 +142,7 @@ def test_chain_fn_variable_frame_counts():
         if state is None:
             st_ff = ff_init(cfg, (C,))
             warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-            st_ff, _ = warm(st_ff, to_device(x_np))
+            st_ff, _ = warm(st_ff, jnp.asarray(x_np))
             state = chain_init(fmt, C, full_from_ff(cfg, st_ff))
         state, out = step(
             state, jnp.asarray(np.ascontiguousarray(x_np.real.T)),
@@ -193,10 +189,9 @@ def test_chain_fn_under_awgn():
              ).astype(np.complex64)
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x_np))
+    st_ff, _ = warm(st_ff, jnp.asarray(x_np))
     state = chain_init(fmt, C, full_from_ff(cfg, st_ff))
-    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc))
     state, out = step(state,
                       jnp.asarray(np.ascontiguousarray(x_np.real.T)),
                       jnp.asarray(np.ascontiguousarray(x_np.imag.T)))
@@ -238,11 +233,10 @@ def test_chain_fn_config3_rrc_8psk():
              ).astype(np.complex64)
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x_np))
+    st_ff, _ = warm(st_ff, jnp.asarray(x_np))
     keep = (cfg.num_avg - 1) * sps + cfg.mf_ntaps - 1
     state = chain_init(fmt, C, full_from_ff(cfg, st_ff, raw_win=x_np[:, -keep:]))
-    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc))
     state, out = step(state,
                       jnp.asarray(np.ascontiguousarray(x_np.real.T)),
                       jnp.asarray(np.ascontiguousarray(x_np.imag.T)))

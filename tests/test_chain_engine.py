@@ -63,7 +63,7 @@ def test_chain_engine_matches_per_stage_stack():
     rx = build_receiver(cfg, C, engine="full", block_symbols=S,
                         uw=fmt.uw, frame_payload=fmt.payload,
                         uw_threshold=0.7, fec=code, fec_labeling="gray",
-                        crc=crc, engine_kwargs={"interpret": True})
+                        crc=crc)
     blk = S * cfg.sps
     for pos in range(0, x.shape[1], blk):
         rx.engine.push_planes(
@@ -74,8 +74,7 @@ def test_chain_engine_matches_per_stage_stack():
     stack_frames = {(f.channel, f.start): f for f in rx.pop_frames()}
 
     # (b) one-launch ChainEngine.
-    eng = ChainEngine(cfg, C, fmt, code, crc, block_symbols=S,
-                      interpret=True)
+    eng = ChainEngine(cfg, C, fmt, code, crc, block_symbols=S)
     for pos in range(0, x.shape[1], blk):
         eng.push_block(x[:, pos:pos + blk])
         eng.step()
@@ -112,8 +111,7 @@ def test_chain_engine_validation_and_reset():
     fmt = FrameFormat(uw=(0, 1, 2, 3) * 4, payload=16, m=4)
     with pytest.raises(ValueError):
         ChainEngine(cfg_mf, 128, fmt, CODE_K7)     # matched filter
-    eng = ChainEngine(cfg, 128, fmt, CODE_K7, block_symbols=128,
-                      interpret=True)
+    eng = ChainEngine(cfg, 128, fmt, CODE_K7, block_symbols=128)
     assert eng.step() is None                      # not enough data
     eng.push_block(np.zeros((128, 128 * 8), np.complex64))
     assert eng.step() == []                        # warm block
@@ -132,8 +130,7 @@ def test_build_receiver_chain_engine():
                                seed=62)
     rx = build_receiver(cfg, 128, engine="chain", block_symbols=256,
                         uw=fmt.uw, frame_payload=48, fec=CODE_K7,
-                        fec_labeling="gray", crc=CRC16_CCITT,
-                        engine_kwargs={"interpret": True})
+                        fec_labeling="gray", crc=CRC16_CCITT)
     assert isinstance(rx.engine, ChainEngine)
     blk = 256 * 8
     for pos in range(0, x.shape[1], blk):
@@ -178,16 +175,14 @@ def test_chain_engine_checkpoint_resume(tmp_path):
             got += eng.step() or []
         return got
 
-    a = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                    interpret=True)
+    a = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S)
     run(a, 0, 3)                                  # warm + 2 chain blocks
     path = os.path.join(tmp_path, "ce.npz")
     save_state(path, a.chain_state, cfg,
                extra={"base": a._base, "blocks": a._blocks})
     st, _, ex = load_state(path)
 
-    b = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                    interpret=True)
+    b = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S)
     b.restore_chain_state(st, base_symbols=ex["base"],
                           blocks_done=ex["blocks"])
     fa = {(f.channel, f.start): f.info_bits for f in run(a, 3, 5)}
@@ -211,10 +206,9 @@ def test_chain_engine_planes_and_pipelined_parity():
                                seed=82)
     blk = S * cfg.sps
 
-    a = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                    interpret=True)
+    a = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S)
     b = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                    pipeline_depth=1, interpret=True)
+                    pipeline_depth=1)
     for pos in range(0, x.shape[1], blk):
         a.push_block(x[:, pos:pos + blk])
         a.step()
@@ -243,16 +237,14 @@ def test_chain_engine_ragged_pushes_and_guards():
                                seed=92)
     blk = S * cfg.sps
 
-    a = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                    interpret=True)
+    a = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S)
     for pos in range(0, x.shape[1], blk):
         a.push_block(x[:, pos:pos + blk])
         a.step()
     a.flush()
     want = {(f.channel, f.start): f.info_bits for f in a.pop_frames()}
 
-    b = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                    interpret=True)
+    b = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S)
     # Ragged: each channel advances by its own random chunk sizes.
     posn = np.zeros(C, np.int64)
     total = x.shape[1]
@@ -275,14 +267,12 @@ def test_chain_engine_ragged_pushes_and_guards():
     with pytest.raises(ValueError):
         b.push_block(x[:, :blk])            # finalized
     assert b.flush() == []                  # idempotent
-    c_eng = ChainEngine(cfg, C, fmt, CODE_K7, block_symbols=S,
-                        interpret=True)
+    c_eng = ChainEngine(cfg, C, fmt, CODE_K7, block_symbols=S)
     c_eng.push(0, x[0, :100])
     with pytest.raises(ValueError):
         c_eng.push_planes(np.zeros((8, C), np.float32),
                           np.zeros((8, C), np.float32))   # mixing
-    d_eng = ChainEngine(cfg, C, fmt, CODE_K7, block_symbols=S,
-                        interpret=True)
+    d_eng = ChainEngine(cfg, C, fmt, CODE_K7, block_symbols=S)
     with pytest.raises(ValueError):
         d_eng.push_planes(np.zeros((8, C), np.int16),
                           np.zeros((8, C), np.int16))     # int wire
@@ -308,9 +298,9 @@ def test_chain_engine_acquire_cfo_beyond_lock():
     blk = S * cfg.sps
 
     plain = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT,
-                        block_symbols=S, interpret=True)
+                        block_symbols=S)
     acq = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
-                      acquire_cfo=True, interpret=True)
+                      acquire_cfo=True)
     for pos in range(0, x.shape[1], blk):
         for eng in (plain, acq):
             eng.push_block(x[:, pos:pos + blk])

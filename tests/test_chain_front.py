@@ -29,7 +29,6 @@ from psk_soft_tpu.ops.crc import CRC16_CCITT
 from psk_soft_tpu.ops.fec import CODE_K7
 from psk_soft_tpu.ops.framesync import FrameFormat
 from psk_soft_tpu.ops.mixer import derotate_host
-from psk_soft_tpu.utils.transfer import to_device
 
 
 def test_agc_tm_matches_channel_major():
@@ -105,12 +104,11 @@ def test_front_chain_closes_beyond_pullin_cfo():
 
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(y_agc))
+    st_ff, _ = warm(st_ff, jnp.asarray(y_agc))
     demod_state = full_from_ff(cfg, st_ff)
 
     # Plain chain on the RAW capture: the offset defeats the tracker.
-    plain = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc,
-                                  interpret=True))
+    plain = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc))
     st_p = chain_init(fmt, C, demod_state)
     st_p, out_p = plain(st_p,
                         jnp.asarray(np.ascontiguousarray(x.real.T)),
@@ -119,8 +117,7 @@ def test_front_chain_closes_beyond_pullin_cfo():
 
     # Front chain on the SAME raw capture: NCO + AGC inside the program.
     front = jax.jit(make_front_chain_fn(cfg, fmt, code, len(rows),
-                                        crc=crc, agc_cfg=agc_cfg,
-                                        interpret=True))
+                                        crc=crc, agc_cfg=agc_cfg))
     st_f = front_chain_init(fmt, C, demod_state, agc_cfg=agc_cfg,
                             freq=freqs)
     st_f, out_f = front(st_f,
@@ -147,12 +144,11 @@ def test_front_chain_equals_host_corrected_plain_chain():
 
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(y_agc))
+    st_ff, _ = warm(st_ff, jnp.asarray(y_agc))
     demod_state = full_from_ff(cfg, st_ff)
 
     front = jax.jit(make_front_chain_fn(cfg, fmt, code, len(rows),
-                                        crc=crc, agc_cfg=agc_cfg,
-                                        interpret=True))
+                                        crc=crc, agc_cfg=agc_cfg))
     st_f = front_chain_init(fmt, C, demod_state, agc_cfg=agc_cfg,
                             freq=freqs)
     st_f, out_f = front(st_f,
@@ -160,8 +156,7 @@ def test_front_chain_equals_host_corrected_plain_chain():
                         jnp.asarray(np.ascontiguousarray(x.imag.T)))
 
     # Host-corrected twin through the PLAIN seam chain (wrapper stack).
-    plain = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc,
-                                  interpret=True))
+    plain = jax.jit(make_chain_fn(cfg, fmt, code, len(rows), crc=crc))
     st_p = chain_init(fmt, C, demod_state)
     # Phase continuity: the host twin's block 1 correction must match the
     # front chain's carried phase (both start at phase 0).

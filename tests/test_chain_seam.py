@@ -28,7 +28,6 @@ from psk_soft_tpu.ops import tx
 from psk_soft_tpu.ops.crc import CRC16_CCITT
 from psk_soft_tpu.ops.fec import CODE_K7, info_bits_for
 from psk_soft_tpu.ops.framesync import FrameFormat, psk_points
-from psk_soft_tpu.utils.transfer import to_device
 
 
 def _soft_stream(fmt, infos, starts, length, channels, seed=0,
@@ -56,8 +55,7 @@ def _run_seam_blocks(fmt, k, soft, s_block, crc=None):
     assert n_blocks * s_block == total
     re = np.ascontiguousarray(soft.real.T).reshape(n_blocks, s_block, c)
     im = np.ascontiguousarray(soft.imag.T).reshape(n_blocks, s_block, c)
-    step = make_seam_tail_fn(fmt, CODE_K7, k, crc=crc, labeling="gray",
-                             interpret=True)
+    step = make_seam_tail_fn(fmt, CODE_K7, k, crc=crc, labeling="gray")
 
     @jax.jit
     def run(tail, re, im):
@@ -236,11 +234,10 @@ def test_full_chain_decodes_straddling_frames():
                        sps, axis=1).astype(np.complex64)
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(warm_x))
+    st_ff, _ = warm(st_ff, jnp.asarray(warm_x))
     k = 2
     state = chain_init(fmt, C, full_from_ff(cfg, st_ff))
-    step = jax.jit(make_chain_fn(cfg, fmt, code, k, crc=crc,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, code, k, crc=crc))
     commits = {c: [] for c in range(C)}
     for b in range(n_blocks):
         blk = x_np[:, b * S * sps:(b + 1) * S * sps]
@@ -291,10 +288,9 @@ def test_one_shot_mode_still_available():
     x_np += (0.01 * rng.standard_normal(x_np.shape)).astype(np.complex64)
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x_np))
+    st_ff, _ = warm(st_ff, jnp.asarray(x_np))
     state = full_from_ff(cfg, st_ff)         # bare FullState
-    step = jax.jit(make_chain_fn(cfg, fmt, CODE_K7, 1, seam=False,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, CODE_K7, 1, seam=False))
     state, out = step(state,
                       jnp.asarray(np.ascontiguousarray(x_np.real.T)),
                       jnp.asarray(np.ascontiguousarray(x_np.imag.T)))
@@ -373,10 +369,9 @@ def test_seam_chain_differential_mode():
                        sps, axis=1).astype(np.complex64)
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(warm_x))
+    st_ff, _ = warm(st_ff, jnp.asarray(warm_x))
     state = chain_init(fmt, C, full_from_ff(cfg, st_ff))
-    step = jax.jit(make_chain_fn(cfg, fmt, CODE_K7, 2, crc=CRC16_CCITT,
-                                 interpret=True))
+    step = jax.jit(make_chain_fn(cfg, fmt, CODE_K7, 2, crc=CRC16_CCITT))
     commits = {c: [] for c in range(C)}
     for b in range(3):
         blk = x[:, b * S * sps:(b + 1) * S * sps]

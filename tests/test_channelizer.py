@@ -202,8 +202,7 @@ def test_frontend_feeds_full_kernel_engine():
         wide += (up * np.exp(2j * np.pi * m * n / C)).astype(np.complex64)
 
     fe = ChannelizerFrontEnd(C, taps_per_branch=K)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=64, s_tile=64,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=64)
     eng.set_input_sri(SRI(stream_id="wb", xdelta=1.0))
     fe.push(wide)
     softs = []

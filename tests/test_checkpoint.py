@@ -5,6 +5,7 @@ re-converge only after its numAvg*sps warm-up; SURVEY.md section 5)."""
 import os
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from psk_soft_tpu import DemodConfig, demod_init, make_demod_fn
@@ -59,7 +60,7 @@ def test_checkpoint_full_kernel_state(tmp_path):
     save_state(path, st, cfg)
     st2, cfg2, _ = load_state(path)
     assert type(st2).__name__ == "FullState"
-    fn = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn = make_full_demod_fn(cfg)
     x2 = np.roll(xs, 1, axis=0)
     _, o1 = fn(st, jnp.asarray(x2.real.T), jnp.asarray(x2.imag.T))
     _, o2 = fn(st2, jnp.asarray(x2.real.T), jnp.asarray(x2.imag.T))
@@ -84,7 +85,7 @@ def test_checkpoint_exact_state(tmp_path):
 
 
 def test_checkpoint_i16_full_state(tmp_path):
-    """An int16-window FullState (wire-format carry, demod_kernel int16
+    """An int16-window FullState (wire-format carry, steady-step int16
     mode) roundtrips dtype-exactly and resumes on the i16 kernel."""
     from psk_soft_tpu.models.blockpsk import ff_init as ffi
     from psk_soft_tpu.models.blockpsk import make_ff_demod_fn as mkff
@@ -106,7 +107,7 @@ def test_checkpoint_i16_full_state(tmp_path):
     x2 = np.roll(xs, 1, axis=0)
     ri = np.round(x2.real.T / scale).astype(np.int16)
     ii = np.round(x2.imag.T / scale).astype(np.int16)
-    fn = make_full_demod_fn(cfg, s_tile=128, in_scale=scale, interpret=True)
+    fn = make_full_demod_fn(cfg, in_scale=scale)
     _, o1 = fn(st, jnp.asarray(ri), jnp.asarray(ii))
     _, o2 = fn(st2, jnp.asarray(ri), jnp.asarray(ii))
     np.testing.assert_array_equal(np.asarray(o2.soft_re),
@@ -125,8 +126,7 @@ def test_checkpoint_engine_rolling_roundtrip(tmp_path):
     xs = np.stack([gen_psk_channel(1536, sps=8, m=4, seed=400 + i,
                                    snr_db=25, timing_offset=i % 8)[0]
                    for i in range(C)])
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128)
     need = 128 * cfg.sps
     for i in range(0, 8 * need, need):
         for c in range(C):
@@ -137,8 +137,7 @@ def test_checkpoint_engine_rolling_roundtrip(tmp_path):
     path = os.path.join(tmp_path, "eng.npz")
     save_state(path, eng.full_state, cfg)
     st2, cfg2, _ = load_state(path)
-    eng2 = FullKernelBatchEngine(cfg2, C, block_symbols=128, s_tile=128,
-                                 interpret=True)
+    eng2 = FullKernelBatchEngine(cfg2, C, block_symbols=128)
     eng2.restore_full_state(st2)
     assert eng2.steady
 
@@ -159,7 +158,6 @@ def test_checkpoint_equalizer_state(tmp_path):
     from psk_soft_tpu import DemodConfig
     from psk_soft_tpu.ops.equalizer import (EqConfig, eq_init, make_eq_fn,
                                             multipath)
-    from psk_soft_tpu.utils.transfer import to_device, to_host
 
     rng = np.random.default_rng(121)
     eq_cfg = EqConfig(taps=11, mu=5e-4)
@@ -167,16 +165,16 @@ def test_checkpoint_equalizer_state(tmp_path):
     x = multipath(np.exp(2j * np.pi * rng.integers(0, 4, (2, 1200)) / 4),
                   [1.0, 0.0, 0.35]).astype(np.complex64)
     st = eq_init(eq_cfg, (2,))
-    st, _, _ = fn(st, to_device(x[:, :800]))
+    st, _, _ = fn(st, jnp.asarray(x[:, :800]))
 
     cfg = DemodConfig(sps=8, num_avg=20, constellation_size=4, phase_avg=20)
     path = str(tmp_path / "eq.npz")
     save_state(path, st, cfg, extra={"eq_cfg": dataclasses.asdict(eq_cfg)})
     st2, cfg2, extra = load_state(path)
     assert extra["eq_cfg"]["taps"] == 11 and cfg2 == cfg
-    _, y_a, _ = fn(st, to_device(x[:, 800:]))
-    _, y_b, _ = fn(st2, to_device(x[:, 800:]))
-    np.testing.assert_array_equal(to_host(y_a), to_host(y_b))
+    _, y_a, _ = fn(st, jnp.asarray(x[:, 800:]))
+    _, y_b, _ = fn(st2, jnp.asarray(x[:, 800:]))
+    np.testing.assert_array_equal(jax.device_get(y_a), jax.device_get(y_b))
 
 
 def test_checkpoint_viterbi_stream_state(tmp_path):
@@ -186,7 +184,6 @@ def test_checkpoint_viterbi_stream_state(tmp_path):
     from psk_soft_tpu.ops.fec import (CODE_K7, conv_encode, hard_llrs,
                                       viterbi_stream_init,
                                       viterbi_stream_step)
-    from psk_soft_tpu.utils.transfer import to_host
 
     rng = np.random.default_rng(122)
     bits = rng.integers(0, 2, (2, 900), np.int8)
@@ -203,7 +200,7 @@ def test_checkpoint_viterbi_stream_state(tmp_path):
     st2, _, _ = load_state(path)
     _, a = viterbi_stream_step(CODE_K7, st, steps[:, 500:])
     _, b = viterbi_stream_step(CODE_K7, st2, steps[:, 500:])
-    np.testing.assert_array_equal(to_host(a), to_host(b))
+    np.testing.assert_array_equal(jax.device_get(a), jax.device_get(b))
 
 
 def test_checkpoint_seam_chain_state(tmp_path):
@@ -219,7 +216,6 @@ def test_checkpoint_seam_chain_state(tmp_path):
     from psk_soft_tpu.ops.crc import CRC16_CCITT
     from psk_soft_tpu.ops.fec import CODE_K7
     from psk_soft_tpu.ops.framesync import FrameFormat
-    from psk_soft_tpu.utils.transfer import to_device
 
     C, sps, S = 128, 8, 256
     cfg = DemodConfig(sps=sps, num_avg=40, constellation_size=4,
@@ -239,9 +235,8 @@ def test_checkpoint_seam_chain_state(tmp_path):
 
     st_ff = ff_init(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x[:, :S * sps]))
-    step = jax.jit(make_chain_fn(cfg, fmt, CODE_K7, 2, crc=CRC16_CCITT,
-                                 interpret=True))
+    st_ff, _ = warm(st_ff, jnp.asarray(x[:, :S * sps]))
+    step = jax.jit(make_chain_fn(cfg, fmt, CODE_K7, 2, crc=CRC16_CCITT))
 
     def run(state, lo_blk, hi_blk, outs):
         for b in range(lo_blk, hi_blk):
@@ -291,12 +286,11 @@ def test_checkpoint_front_chain_state(tmp_path):
     fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 16)), payload=16, m=4)
     import jax
     from psk_soft_tpu.models.blockpsk import demod_block_ff
-    from psk_soft_tpu.utils.transfer import to_device
     x = (rng.standard_normal((C, 40 * 8 * 4))
          + 1j * rng.standard_normal((C, 40 * 8 * 4))).astype(np.complex64)
     st_ff = ffi(cfg, (C,))
     warm = jax.jit(jax.vmap(lambda s, b: demod_block_ff(cfg, s, b)))
-    st_ff, _ = warm(st_ff, to_device(x))
+    st_ff, _ = warm(st_ff, jnp.asarray(x))
     freqs = np.linspace(1e-3, 2e-2, C).astype(np.float32)
     for agc_cfg in (None, AgcConfig(alpha=0.1, chunk=8)):
         st = front_chain_init(fmt, C, full_from_ff(cfg, st_ff),

@@ -70,8 +70,7 @@ def test_full_engine_configure_keeps_lock():
     """Reconfigure on the steady flagship engine: the carry survives (C7),
     the engine re-warms on the flexible path, and lock is maintained."""
     C = 128
-    eng = FullKernelBatchEngine(CFG, channels=C, block_symbols=128,
-                                s_tile=128, interpret=True)
+    eng = FullKernelBatchEngine(CFG, channels=C, block_symbols=128)
     xs = _decisive_bank(C, 1024, seed0=10)
     blocks = np.split(xs, 8, axis=1)
     for blk in blocks[:4]:
@@ -100,8 +99,7 @@ def test_full_engine_configure_keeps_lock():
 
 def test_full_engine_reset_restarts_warmup():
     C = 128
-    eng = FullKernelBatchEngine(CFG, channels=C, block_symbols=128,
-                                s_tile=128, interpret=True)
+    eng = FullKernelBatchEngine(CFG, channels=C, block_symbols=128)
     xs = _decisive_bank(C, 256, seed0=20)
     for blk in np.split(xs, 2, axis=1):
         for c in range(C):
@@ -187,13 +185,20 @@ def test_group_engine_lifecycle_passthrough():
 
 
 def test_demod_block_full_rejects_short_block():
+    """A block shorter than the timing window (8 symbols << num_avg-1) is
+    demodulated from [window | block] and the carried window is the last
+    window-length rows of that concatenation -- never a wrapped slice."""
     import jax.numpy as jnp
 
-    st_dummy = full_mod.FullState(
-        win_re=jnp.zeros(((CFG.num_avg - 1) * 8, 128), jnp.float32),
-        win_im=jnp.zeros(((CFG.num_avg - 1) * 8, 128), jnp.float32),
-        planes=jnp.zeros((full_mod.demod_kernel.state_rows(CFG.phase_avg),
-                          128), jnp.float32))
-    short = jnp.zeros((8 * 8, 128), jnp.float32)  # 8 symbols << num_avg-1
-    with pytest.raises(ValueError, match="pad the final block"):
-        full_mod.demod_block_full(CFG, st_dummy, short, short)
+    rows = (CFG.num_avg - 1) * 8
+    win = jnp.arange(rows * 128, dtype=jnp.float32).reshape(rows, 128)
+    st = full_mod.FullState(
+        win_re=win, win_im=-win,
+        planes=jnp.zeros((full_mod.state_rows(CFG.phase_avg), 128),
+                         jnp.float32))
+    short = jnp.ones((8 * 8, 128), jnp.float32)
+    st2, out = full_mod.demod_block_full(CFG, st, short, short)
+    assert out.soft_re.shape == (8, 128)
+    want = np.concatenate([np.asarray(win), np.ones((64, 128))])[-rows:]
+    np.testing.assert_array_equal(np.asarray(st2.win_re), want)
+    np.testing.assert_array_equal(np.asarray(st2.win_im)[-64:], 1.0)

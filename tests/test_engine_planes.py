@@ -1,6 +1,6 @@
 """FullKernelBatchEngine plane-ingest path: time-major re/im planes from
 the native plane bank feed the kernel with zero host transposes; int16 wire
-planes ride demod_kernel's int16 mode end to end."""
+planes ride the steady step's int16 mode end to end."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -46,10 +46,8 @@ def test_plane_path_matches_push_path():
     xs = _bank_signal(1024, seed0=0)
     blocks = np.split(xs, 8, axis=1)          # (C, 1024) per block
 
-    e1 = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                               interpret=True)
-    e2 = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                               interpret=True)
+    e1 = FullKernelBatchEngine(cfg, C, block_symbols=128)
+    e2 = FullKernelBatchEngine(cfg, C, block_symbols=128)
 
     def feed_push(b):
         for c in range(C):
@@ -75,8 +73,7 @@ def test_native_plane_bank_to_engine():
     xs = _bank_signal(1024, seed0=50)
     frames = np.ascontiguousarray(xs.T)       # (T, C) time-major complex
     bank = NativePlaneBank(C, capacity_samples=1 << 14)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128)
     need = 128 * cfg.sps
     outs = []
     for i in range(0, frames.shape[0], need):
@@ -101,10 +98,8 @@ def test_i16_plane_engine_end_to_end():
     xq = ((re_w.astype(np.float32) * scale).T
           + 1j * (im_w.astype(np.float32) * scale).T).astype(np.complex64)
 
-    ref = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True, ingest_scale=scale)
+    ref = FullKernelBatchEngine(cfg, C, block_symbols=128)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, ingest_scale=scale)
     need = 128 * cfg.sps
     for i in range(0, 1024 * 8, need):
         for c in range(C):
@@ -130,8 +125,7 @@ def test_i16_engine_configure_roundtrip():
     scale = float(max(np.abs(xs.real).max(), np.abs(xs.imag).max())) / 32000.0
     re_w = np.round(np.ascontiguousarray(xs.real.T) / scale).astype(np.int16)
     im_w = np.round(np.ascontiguousarray(xs.imag.T) / scale).astype(np.int16)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True, ingest_scale=scale)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, ingest_scale=scale)
     need = 128 * cfg.sps
     pos = 0
     for _ in range(4):
@@ -155,8 +149,7 @@ def test_i16_engine_configure_roundtrip():
 def test_plane_flush_remainder():
     cfg = _cfg()
     xs = _bank_signal(1024 + 64, seed0=200)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128)
     re_p = np.ascontiguousarray(xs.real.T).astype(np.float32)
     im_p = np.ascontiguousarray(xs.imag.T).astype(np.float32)
     need = 128 * cfg.sps
@@ -173,7 +166,7 @@ def test_plane_flush_remainder():
 
 def test_plane_and_push_cannot_mix():
     cfg = _cfg()
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128)
     eng.push(0, np.zeros(8, np.complex64))
     with pytest.raises(ValueError):
         eng.push_planes(np.zeros((8, C), np.float32),
@@ -191,10 +184,9 @@ def test_full_engine_guard_nonfinite_steady():
     tracking is untouched (bit-identical to an unpoisoned run)."""
     cfg = _cfg()
     xs = _bank_signal(1536, seed0=300)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True, guard_nonfinite=True)
-    ref = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128,
+                                guard_nonfinite=True)
+    ref = FullKernelBatchEngine(cfg, C, block_symbols=128)
     need = 128 * cfg.sps
     blocks = [xs[:, i: i + need] for i in range(0, 1536 * 8, need)]
     for blk in blocks[:5]:
@@ -235,8 +227,8 @@ def test_full_engine_guard_nonfinite_warmup():
     """The warm-up (ff) phase guards too, matching BatchEngine semantics."""
     cfg = _cfg()
     xs = _bank_signal(256, seed0=400)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True, guard_nonfinite=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128,
+                                guard_nonfinite=True)
     blk = xs[:, : 128 * 8].copy()
     blk[3, :16] = np.inf
     for c in range(C):
@@ -259,7 +251,6 @@ def test_mixed_engine_guard_keeps_modes():
     params = MixedParams.make(ms, rng.random(C) < 0.5)
     xs = _bank_signal(1024, seed0=500)
     eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True,
                                  guard_nonfinite=True)
     need = 128 * cfg.sps
     for i in range(0, 5 * need, need):
@@ -285,10 +276,8 @@ def test_full_engine_rolling_matches_legacy():
     path, and the full_state property materializes an identical carry."""
     cfg = _cfg()
     xs = _bank_signal(2048, seed0=600)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
-    ref = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128)
+    ref = FullKernelBatchEngine(cfg, C, block_symbols=128)
     ref._roll_ok = False            # force the window-carry path
     need = 128 * cfg.sps
     outs, outs_ref = [], []
@@ -343,10 +332,8 @@ def test_full_engine_debug_ports_off_packets():
 
     cfg = _cfg()
     xs = _bank_signal(1024, seed0=700)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True, debug_ports=False)
-    ref = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, debug_ports=False)
+    ref = FullKernelBatchEngine(cfg, C, block_symbols=128)
     sri = SRI(stream_id="dbg", xdelta=1e-6)
     eng.set_input_sri(sri)
     ref.set_input_sri(sri)
@@ -378,10 +365,8 @@ def test_device_resident_planes_match_host_planes():
     xs = _bank_signal(768, seed0=5)
     blocks = np.split(xs, 6, axis=1)
 
-    e1 = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                               interpret=True)
-    e2 = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                               interpret=True)
+    e1 = FullKernelBatchEngine(cfg, C, block_symbols=128)
+    e2 = FullKernelBatchEngine(cfg, C, block_symbols=128)
 
     def feed_host(b):
         e1.push_planes(np.ascontiguousarray(blocks[b].real.T),

@@ -13,6 +13,7 @@ test_framesync.py); here we pin the new machinery itself:
   DemodOutputs) blocks.
 """
 
+import jax.numpy as jnp
 import jax
 import numpy as np
 import pytest
@@ -26,7 +27,6 @@ from psk_soft_tpu.ops.framesync import (FrameFormat, correlate_uw,
 from psk_soft_tpu.runtime.engine import FullKernelBatchEngine
 from psk_soft_tpu.runtime.framesync import FrameSyncer
 from psk_soft_tpu.runtime.streams import SRI
-from psk_soft_tpu.utils.transfer import to_host
 
 
 def _soft_bank(C, S, fmt, seed=5, starts=None):
@@ -50,7 +50,7 @@ def test_sparse_detection_matches_dense(m):
     fmt = FrameFormat(uw=tuple(rng.integers(0, m, 24)), payload=40, m=m,
                       threshold=0.7)
     soft = _soft_bank(6, 600, fmt, seed=m)
-    corr, norm = to_host(correlate_uw(soft, fmt.points))
+    corr, norm = jax.device_get(correlate_uw(soft, fmt.points))
     dense = detect_peaks(norm, fmt.threshold, fmt.separation)
     cand = detect_uw_sparse(soft, fmt)
     assert cand.idx.dtype == np.int32     # exact at any block length
@@ -76,7 +76,7 @@ def test_extract_heads_matches_host():
     fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 16)), payload=24, m=4,
                       threshold=0.7)
     soft = _soft_bank(4, 400, fmt)
-    corr, norm = to_host(correlate_uw(soft, fmt.points))
+    corr, norm = jax.device_get(correlate_uw(soft, fmt.points))
     peaks = detect_peaks(norm, fmt.threshold, fmt.separation)
     heads = [(c, int(t)) for c, ts in enumerate(peaks) for t in ts
              if t + fmt.frame_len <= soft.shape[1]]
@@ -95,7 +95,6 @@ def test_extract_heads_matches_host():
 
 def test_sync_extract_topk_matches_dense():
     from psk_soft_tpu.ops.framesync import sync_extract_topk
-    from psk_soft_tpu.utils.transfer import to_device
 
     rng = np.random.default_rng(3)
     fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 24)), payload=32, m=4,
@@ -104,10 +103,10 @@ def test_sync_extract_topk_matches_dense():
                       starts=[20, 170, 320])         # 3 frames/channel
     k = 4                                            # capacity > frames
     pm, found, pos, ang, count = jax.jit(
-        lambda s: sync_extract_topk(s, fmt, k))(to_device(soft))
-    pm, found, pos, count = (to_host(pm), np.asarray(found),
+        lambda s: sync_extract_topk(s, fmt, k))(jnp.asarray(soft))
+    pm, found, pos, count = (jax.device_get(pm), np.asarray(found),
                              np.asarray(pos), np.asarray(count))
-    corr, norm = to_host(correlate_uw(soft, fmt.points))
+    corr, norm = jax.device_get(correlate_uw(soft, fmt.points))
     dense = detect_peaks(norm, fmt.threshold, fmt.separation)
     for c, ts in enumerate(dense):
         ts = ts[ts + fmt.frame_len <= soft.shape[1]]
@@ -142,7 +141,7 @@ def _run_engine_sync(device_tap: bool, soft_i8: bool = False,
          ).astype(np.complex64)
 
     eng = FullKernelBatchEngine(cfg, C, block_symbols=256, soft_i8=soft_i8,
-                                data_ports=data_ports, interpret=True)
+                                data_ports=data_ports)
     eng.set_input_sri(SRI(stream_id="dev-tap"))
     sync = FrameSyncer(eng, fmt, device_tap=device_tap)
     assert sync._tap_device is device_tap
@@ -188,7 +187,6 @@ def test_sync_topk_tm_matches_wrapper():
     # (the wrapper is a transpose; all picks are one-hot-exact).
     from psk_soft_tpu.ops.framesync import (sync_extract_topk,
                                             sync_extract_topk_tm)
-    from psk_soft_tpu.utils.transfer import to_device
 
     rng = np.random.default_rng(7)
     fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 24)), payload=32, m=4,
@@ -196,7 +194,7 @@ def test_sync_topk_tm_matches_wrapper():
     soft = _soft_bank(4, 512, fmt, seed=7, starts=[30, 200, 350])
     k = 3
     pm1, f1, p1, a1, n1 = jax.jit(
-        lambda s: sync_extract_topk(s, fmt, k))(to_device(soft))
+        lambda s: sync_extract_topk(s, fmt, k))(jnp.asarray(soft))
     re_t = np.ascontiguousarray(soft.real.T)
     im_t = np.ascontiguousarray(soft.imag.T)
     pm2, f2, p2, a2, n2 = jax.jit(
@@ -206,7 +204,7 @@ def test_sync_topk_tm_matches_wrapper():
     np.testing.assert_array_equal(np.asarray(n1), np.asarray(n2))
     f = np.asarray(f1)
     np.testing.assert_array_equal(np.asarray(a1)[f], np.asarray(a2)[f])
-    np.testing.assert_array_equal(to_host(pm1)[f], to_host(pm2)[f])
+    np.testing.assert_array_equal(jax.device_get(pm1)[f], jax.device_get(pm2)[f])
 
 
 def test_sync_topk_fuzz_vs_dense():
@@ -215,7 +213,6 @@ def test_sync_topk_fuzz_vs_dense():
     # no-peak channels, more peaks than capacity, and frames whose
     # payload runs past the block edge (containment drop).
     from psk_soft_tpu.ops.framesync import sync_extract_topk
-    from psk_soft_tpu.utils.transfer import to_device
 
     rng = np.random.default_rng(42)
     for trial in range(8):
@@ -243,10 +240,10 @@ def test_sync_topk_fuzz_vs_dense():
         k = int(rng.integers(1, 5))
         pm, found, pos, ang, count = jax.jit(
             lambda x, fmt=fmt, k=k: sync_extract_topk(x, fmt, k)
-        )(to_device(soft))
-        pm, found, pos, count = (to_host(pm), np.asarray(found),
+        )(jnp.asarray(soft))
+        pm, found, pos, count = (jax.device_get(pm), np.asarray(found),
                                  np.asarray(pos), np.asarray(count))
-        corr, norm = to_host(correlate_uw(soft, fmt.points))
+        corr, norm = jax.device_get(correlate_uw(soft, fmt.points))
         dense = detect_peaks(norm, fmt.threshold, fmt.separation)
         for ch, ts in enumerate(dense):
             ts = ts[ts + fmt.frame_len <= s]

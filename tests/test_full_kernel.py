@@ -1,23 +1,23 @@
-"""Fully-fused single-kernel pipeline vs the feed-forward reference
-(interpret mode on CPU; the same kernel compiles with Mosaic on TPU)."""
+"""Steady-state time-major demod step (models/full) vs the feed-forward
+reference (models/blockpsk) on the same converged carry."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from psk_soft_tpu import DemodConfig
 from psk_soft_tpu.models.blockpsk import ff_init, make_ff_demod_fn
 from psk_soft_tpu.models.full import (demod_block_full, full_from_ff,
-                                      make_full_demod_fn, to_demod_outputs)
-from psk_soft_tpu.ops.pallas.demod_kernel import atan2_poly
+                                      make_full_demod_fn,
+                                      make_scanned_full_demod_fn,
+                                      to_demod_outputs)
 
 C, NS = 128, 768
 
 
-def _channels(m=4, diff=False, sps=8):
+def _channels(m=4, diff=False, sps=8, c=C):
     out = []
-    for i in range(C):
+    for i in range(c):
         rng = np.random.default_rng(i)
         j = rng.integers(0, m, NS)
         pts = np.exp(2j * np.pi * j / m)
@@ -28,14 +28,6 @@ def _channels(m=4, diff=False, sps=8):
         x += (0.01 * rng.standard_normal(x.size)).astype(np.complex64)
         out.append(x)
     return np.stack(out)
-
-
-def test_atan2_poly_accuracy():
-    rng = np.random.default_rng(0)
-    y = rng.standard_normal(4096).astype(np.float32)
-    x = rng.standard_normal(4096).astype(np.float32)
-    got = np.asarray(atan2_poly(jnp.asarray(y), jnp.asarray(x)))
-    np.testing.assert_allclose(got, np.arctan2(y, x), atol=5e-6)
 
 
 @pytest.mark.parametrize("m,diff", [(4, False), (2, False), (8, False),
@@ -50,7 +42,7 @@ def test_full_kernel_matches_blockpsk_steady(m, diff):
     fn_ff = make_ff_demod_fn(cfg, channels=C)
     st_ff, _ = fn_ff(ff_init(cfg, (C,)), jnp.asarray(warm))
     st_full = full_from_ff(cfg, st_ff)
-    fn_full = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn_full = make_full_demod_fn(cfg)
     st_full, out_full = fn_full(st_full, jnp.asarray(run.real.T),
                                 jnp.asarray(run.imag.T))
     out_full = to_demod_outputs(cfg, out_full)
@@ -74,7 +66,7 @@ def test_full_kernel_multiblock_carry():
     warm, run = np.split(xs, [256 * 8], axis=1)
     fn_ff = make_ff_demod_fn(cfg, channels=C)
     st_ff, _ = fn_ff(ff_init(cfg, (C,)), jnp.asarray(warm))
-    fn_full = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn_full = make_full_demod_fn(cfg)
 
     st = full_from_ff(cfg, st_ff)
     st1, one = fn_full(st, jnp.asarray(run.real.T), jnp.asarray(run.imag.T))
@@ -91,26 +83,35 @@ def test_full_kernel_multiblock_carry():
     np.testing.assert_allclose(planes_a, planes_b, atol=1e-3)
 
 
-@pytest.mark.parametrize("sps,s_tile", [(8, 128), (10, 64)])
-def test_full_kernel_double_buffer_bitexact(sps, s_tile):
-    """Double-buffered input DMA must be bit-exact vs single-buffered at the
-    same tile size (verified on hardware too; this locks the interpret path).
-    sps=10 exercises the concat/tile_pad path with a tile below num_avg-1
-    (allowed there: the concat tile start needs no window subtraction)."""
+@pytest.mark.parametrize("sps,n_blocks", [(8, 2), (10, 3)])
+def test_full_kernel_double_buffer_bitexact(sps, n_blocks):
+    """One dispatch scanning the step over a stack of blocks decodes the
+    same stream as stepping block by block (sps=10 puts the window at a
+    row count that is not a multiple of 8)."""
     cfg = DemodConfig(sps=sps, num_avg=50, constellation_size=4, phase_avg=20)
     xs = _channels(sps=sps)
     warm, run = np.split(xs, [256 * sps], axis=1)
+    run = run[:, :(run.shape[1] // (n_blocks * sps)) * n_blocks * sps]
     fn_ff = make_ff_demod_fn(cfg, channels=C)
     st_ff, _ = fn_ff(ff_init(cfg, (C,)), jnp.asarray(warm))
     st0 = full_from_ff(cfg, st_ff)
-    xr, xi = jnp.asarray(run.real.T), jnp.asarray(run.imag.T)
-    outs = []
-    for db in (False, True):
-        st, out = demod_block_full(cfg, st0, xr, xi, s_tile=s_tile,
-                                   double_buffer=db, interpret=True)
-        outs.append([np.asarray(l) for l in jax.tree.leaves((st, out))])
-    for u, v in zip(*outs):
-        np.testing.assert_array_equal(u, v)
+    blocks = np.split(run, n_blocks, axis=1)
+    xr = jnp.asarray(np.stack([b.real.T for b in blocks]))
+    xi = jnp.asarray(np.stack([b.imag.T for b in blocks]))
+    st_scan, out_scan = make_scanned_full_demod_fn(cfg)(st0, xr, xi)
+    step = make_full_demod_fn(cfg)
+    st = st0
+    for i in range(n_blocks):
+        st, out = step(st, xr[i], xi[i])
+        np.testing.assert_array_equal(np.asarray(out.bits_packed),
+                                      np.asarray(out_scan.bits_packed[i]))
+        np.testing.assert_array_equal(np.asarray(out.sample_index),
+                                      np.asarray(out_scan.sample_index[i]))
+        np.testing.assert_allclose(np.asarray(out.soft_re),
+                                   np.asarray(out_scan.soft_re[i]),
+                                   atol=1e-5)
+    np.testing.assert_allclose(np.asarray(st.planes),
+                               np.asarray(st_scan.planes), atol=1e-4)
 
 
 def test_full_kernel_guards():
@@ -122,7 +123,7 @@ def test_full_kernel_guards():
 
 def test_full_kernel_packed_int8_outputs():
     """pack_out=True emits int8 bits/sampleIndex planes bit-identical to the
-    int32 ones (and auto mode packs whenever s_tile is 32-aligned)."""
+    int32 ones (and auto mode packs whenever sps fits int8)."""
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=8, phase_avg=20)
     xs = _channels(m=8)
     warm, run = np.split(xs, [256 * 8], axis=1)
@@ -131,10 +132,8 @@ def test_full_kernel_packed_int8_outputs():
     st = full_from_ff(cfg, st_ff)
     xr = jnp.asarray(run.real.T)
     xi = jnp.asarray(run.imag.T)
-    _, o32 = demod_block_full(cfg, st, xr, xi, s_tile=128, pack_out=False,
-                              interpret=True)
-    _, o8 = demod_block_full(cfg, st, xr, xi, s_tile=128, pack_out=True,
-                             interpret=True)
+    _, o32 = demod_block_full(cfg, st, xr, xi, pack_out=False)
+    _, o8 = demod_block_full(cfg, st, xr, xi, pack_out=True)
     assert o8.bits_packed.dtype == jnp.int8
     assert o8.sample_index.dtype == jnp.int8
     np.testing.assert_array_equal(np.asarray(o32.bits_packed),
@@ -143,17 +142,19 @@ def test_full_kernel_packed_int8_outputs():
                                   np.asarray(o8.sample_index))
     np.testing.assert_array_equal(np.asarray(o32.soft_re),
                                   np.asarray(o8.soft_re))
-    # Auto mode packs at a 32-aligned tile.
-    _, oa = demod_block_full(cfg, st, xr, xi, s_tile=128, interpret=True)
+    # Auto mode packs.
+    _, oa = demod_block_full(cfg, st, xr, xi)
     assert oa.bits_packed.dtype == jnp.int8
-    # Explicit pack at a misaligned tile is rejected, not miscompiled.
-    cfg10 = DemodConfig(sps=10, num_avg=5, constellation_size=4, phase_avg=20)
-    stp = full_from_ff(cfg10, ff_init(cfg10, (C,)))
+    # Explicit pack with sample indices past the int8 range is rejected,
+    # not silently wrapped.
+    cfg_w = DemodConfig(sps=130, num_avg=2, constellation_size=4,
+                        phase_avg=20)
+    stp = full_from_ff(cfg_w, ff_init(cfg_w, (C,)))
     with pytest.raises(ValueError, match="pack_out"):
-        demod_block_full(cfg10, stp,
-                         jnp.zeros((40 * 10, C), jnp.float32),
-                         jnp.zeros((40 * 10, C), jnp.float32),
-                         s_tile=40, pack_out=True, interpret=True)
+        demod_block_full(cfg_w, stp,
+                         jnp.zeros((4 * 130, C), jnp.float32),
+                         jnp.zeros((4 * 130, C), jnp.float32),
+                         pack_out=True)
 
 
 def test_full_kernel_rolling_window_parity():
@@ -175,19 +176,17 @@ def test_full_kernel_rolling_window_parity():
     st = full_from_ff(cfg, st_ff)
     legacy = []
     for xr, xi in planes_blocks:
-        st, o = demod_block_full(cfg, st, xr, xi, s_tile=64, interpret=True)
+        st, o = demod_block_full(cfg, st, xr, xi)
         legacy.append(o)
 
     # Rolling chain: block 0 legacy (no previous planes), then rolling.
     st2 = full_from_ff(cfg, st_ff)
-    st2, o0 = demod_block_full(cfg, st2, *planes_blocks[0], s_tile=64,
-                               interpret=True)
+    st2, o0 = demod_block_full(cfg, st2, *planes_blocks[0])
     rolling = [o0]
     planes = st2.planes
     for i in range(1, 4):
         planes, o = demod_block_full_rolling(
-            cfg, planes, *planes_blocks[i - 1], *planes_blocks[i],
-            s_tile=64, interpret=True)
+            cfg, planes, *planes_blocks[i - 1], *planes_blocks[i])
         rolling.append(o)
 
     for a, b in zip(legacy, rolling):
@@ -214,7 +213,7 @@ def test_full_kernel_rolling_rejects_mf():
     z = jnp.zeros((512 * 8, C), jnp.float32)
     with pytest.raises(ValueError, match="rolling"):
         demod_block_full_rolling(cfg, jnp.zeros((56, C), jnp.float32),
-                                 z, z, z, z, s_tile=64, interpret=True)
+                                 z, z, z, z)
 
 
 def test_full_kernel_debug_ports_off():
@@ -231,9 +230,8 @@ def test_full_kernel_debug_ports_off():
     st = full_from_ff(cfg, st_ff)
     xr = jnp.asarray(run.real.T)
     xi = jnp.asarray(run.imag.T)
-    st_on, on = demod_block_full(cfg, st, xr, xi, s_tile=128, interpret=True)
-    st_off, off = demod_block_full(cfg, st, xr, xi, s_tile=128,
-                                   debug_ports=False, interpret=True)
+    st_on, on = demod_block_full(cfg, st, xr, xi)
+    st_off, off = demod_block_full(cfg, st, xr, xi, debug_ports=False)
     assert off.phase is None and off.sample_index is None
     np.testing.assert_array_equal(np.asarray(on.soft_re),
                                   np.asarray(off.soft_re))
@@ -249,5 +247,38 @@ def test_full_kernel_debug_ports_off():
         cfg, st_off.planes,
         jnp.asarray(run[:, :half].real.T), jnp.asarray(run[:, :half].imag.T),
         jnp.asarray(run[:, half:].real.T), jnp.asarray(run[:, half:].imag.T),
-        s_tile=128, debug_ports=False, interpret=True)
+        debug_ports=False)
     assert o2.phase is None
+
+
+@pytest.mark.parametrize("c", [100, 3])
+def test_full_step_any_channel_count(c):
+    """Channel counts that are not a multiple of 128 run and match the
+    feed-forward reference (the step has no lane-tile rule)."""
+    cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
+    xs = _channels(c=c)
+    warm, run = np.split(xs, [256 * 8], axis=1)
+    fn_ff = make_ff_demod_fn(cfg, channels=c)
+    st_ff, _ = fn_ff(ff_init(cfg, (c,)), jnp.asarray(warm))
+    st, out = make_full_demod_fn(cfg)(full_from_ff(cfg, st_ff),
+                                      jnp.asarray(run.real.T),
+                                      jnp.asarray(run.imag.T))
+    assert out.soft_re.shape == (run.shape[1] // 8, c)
+    assert st.planes.shape[1] == c
+    _, out_ff = fn_ff(st_ff, jnp.asarray(run))
+    out = to_demod_outputs(cfg, out)
+    np.testing.assert_allclose(np.asarray(out.soft),
+                               np.asarray(out_ff.soft), atol=3e-3)
+    np.testing.assert_array_equal(np.asarray(out.bits)[..., :2],
+                                  np.asarray(out_ff.bits)[..., :2])
+
+
+def test_full_step_rejects_bad_shapes():
+    cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
+    st = full_from_ff(cfg, ff_init(cfg, (C,)))
+    z = jnp.zeros((64 * 8 + 3, C), jnp.float32)
+    with pytest.raises(ValueError, match="multiple of sps"):
+        demod_block_full(cfg, st, z, z)
+    z = jnp.zeros((64 * 8, C + 1), jnp.float32)
+    with pytest.raises(ValueError, match="win planes"):
+        demod_block_full(cfg, st, z, z)

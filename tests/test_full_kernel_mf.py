@@ -1,11 +1,10 @@
-"""Matched filter + fractional timing on the fused-kernel flagship path
-(VERDICT round-1 item 1: BASELINE config 3 -- 8-PSK + RRC + early-late --
-previously ran only on the XLA feed-forward pipeline).
+"""Matched filter + fractional timing on the steady-state flagship path
+(BASELINE config 3 -- 8-PSK + RRC + early-late).
 
-The RRC FIR runs inside the Mosaic kernel as chunked banded matmuls (the
-window carry holds RAW samples); fractional timing is the circular-centroid
-estimate on the already-resident bin energies.  Parity gate: the kernel
-(interpret mode) against models/blockpsk on shaped signals.
+The RRC FIR runs inside the steady step on [window | block] (the window
+carry holds RAW samples); fractional timing is the circular-centroid
+estimate on the bin energies.  Parity gate: the steady step against
+models/blockpsk on shaped signals.
 """
 
 import numpy as np
@@ -30,7 +29,7 @@ def _bank(cfg, S, seed0=0, m=None, pulse="rrc"):
         for i in range(C)])
 
 
-def _kernel_vs_ff(cfg, xs, s_tile=128, warm_syms=256, index_exact=True):
+def _kernel_vs_ff(cfg, xs, warm_syms=256, index_exact=True):
     warm, run = np.split(xs, [warm_syms * cfg.sps], axis=1)
     fn_ff = make_ff_demod_fn(cfg, channels=C)
     st_ff, _ = fn_ff(ff_init(cfg, (C,)), jnp.asarray(warm))
@@ -39,7 +38,7 @@ def _kernel_vs_ff(cfg, xs, s_tile=128, warm_syms=256, index_exact=True):
         keep = (cfg.num_avg - 1) * cfg.sps + cfg.mf_ntaps - 1
         raw_win = warm[:, warm.shape[1] - keep:]
     st = full_from_ff(cfg, st_ff, raw_win=raw_win)
-    fn = make_full_demod_fn(cfg, s_tile=s_tile, interpret=True)
+    fn = make_full_demod_fn(cfg)
     st, out = fn(st, jnp.asarray(np.ascontiguousarray(run.real.T)),
                  jnp.asarray(np.ascontiguousarray(run.imag.T)))
     d = to_demod_outputs(cfg, out)
@@ -90,7 +89,7 @@ def test_boxcar_parity_sps10():
     cfg = DemodConfig(sps=10, num_avg=50, constellation_size=4, phase_avg=20,
                       matched_filter="boxcar")
     xs = _bank(cfg, 640, seed0=300, pulse="rect")
-    _kernel_vs_ff(cfg, xs, s_tile=128)
+    _kernel_vs_ff(cfg, xs)
 
 
 def test_full_engine_rrc_end_to_end():
@@ -101,8 +100,7 @@ def test_full_engine_rrc_end_to_end():
                       timing_interp=True)
     xs = _bank(cfg, 1024, seed0=400)
     ref = BatchEngine(cfg, channels=C, block_symbols=128)
-    eng = FullKernelBatchEngine(cfg, channels=C, block_symbols=128,
-                                s_tile=128, interpret=True)
+    eng = FullKernelBatchEngine(cfg, channels=C, block_symbols=128)
     ref_soft, full_soft = [], []
     for blk in np.split(xs, 8, axis=1):
         for c in range(C):
@@ -123,8 +121,7 @@ def test_full_engine_rrc_reconfigure_roundtrip():
     cfg = DemodConfig(sps=8, num_avg=20, constellation_size=4, phase_avg=12,
                       matched_filter="rrc", rrc_beta=0.35, rrc_span=4)
     xs = _bank(cfg, 1024, seed0=500)
-    eng = FullKernelBatchEngine(cfg, channels=C, block_symbols=128,
-                                s_tile=128, interpret=True)
+    eng = FullKernelBatchEngine(cfg, channels=C, block_symbols=128)
     blocks = np.split(xs, 8, axis=1)
     for blk in blocks[:3]:
         for c in range(C):
@@ -151,7 +148,7 @@ def test_full_engine_rrc_reconfigure_roundtrip():
 
 
 def test_mixed_mode_kernel_parity():
-    """Per-channel (M, differential) planes in the fused kernel (VERDICT
+    """Per-channel (M, differential) planes in the steady step (VERDICT
     round-1 item 2: BASELINE config 4 at kernel speed).  Parity vs the XLA
     mixed pipeline on timing-decisive signals."""
     from psk_soft_tpu.models.mixed import (MixedParams, make_mixed_demod_fn,
@@ -181,7 +178,7 @@ def test_mixed_mode_kernel_parity():
     fn_mx = make_mixed_demod_fn(cfg)
     st_mx, _ = fn_mx(params, mixed_init(cfg, C), jnp.asarray(warm))
     st = full_from_ff(cfg, st_mx, mixed_params=params)
-    fn = make_mixed_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn = make_mixed_full_demod_fn(cfg)
     st, out = fn(st, jnp.asarray(np.ascontiguousarray(run.real.T)),
                  jnp.asarray(np.ascontiguousarray(run.imag.T)))
     from psk_soft_tpu.models.full import to_demod_outputs

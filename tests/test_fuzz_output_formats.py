@@ -1,4 +1,4 @@
-"""Fuzz the fused kernel's OUTPUT/INGEST format options against the plain
+"""Fuzz the steady step's OUTPUT/INGEST format options against the plain
 f32 run: random configs x {soft_i8, debug_ports off, int16 ingest,
 pack_out forced off}.
 
@@ -52,12 +52,11 @@ for _ in range(6):
         debug_ports=bool(_rng.integers(0, 2)),
         i16=bool(_rng.integers(0, 2)),
         pack_out=[None, False][int(_rng.integers(0, 2))],
-        s_tile=int(_rng.choice([32, 64])),
     ))
 # make sure the densest interaction is always in the sweep
 CASES.append(dict(sps=8, num_avg=20, constellation_size=4, phase_avg=15,
                   differential=True, matched_filter="none", soft_i8=True,
-                  debug_ports=False, i16=True, pack_out=None, s_tile=64))
+                  debug_ports=False, i16=True, pack_out=None))
 
 
 def _signal(cfg, nsym):
@@ -109,8 +108,7 @@ def test_fuzz_output_format_interactions(case):
                if cfg.matched_filter != "none" else None)
     st = full_from_ff(cfg, st_ff, raw_win=raw_win)
 
-    base = functools.partial(demod_block_full, cfg, s_tile=case["s_tile"],
-                             interpret=True)
+    base = functools.partial(demod_block_full, cfg)
     x_re = jnp.asarray(np.ascontiguousarray(run.real.T))
     x_im = jnp.asarray(np.ascontiguousarray(run.imag.T))
     _, o_base = base(st, x_re, x_im)
@@ -128,10 +126,9 @@ def test_fuzz_output_format_interactions(case):
             np.round(run.imag.T / in_scale).astype(np.int16)))
     soft_scale = SCALE if case["soft_i8"] else None
     _, o_opt = demod_block_full(
-        cfg, st_opt, xo_re, xo_im, s_tile=case["s_tile"],
+        cfg, st_opt, xo_re, xo_im,
         in_scale=in_scale, pack_out=case["pack_out"],
-        soft_i8_scale=soft_scale, debug_ports=case["debug_ports"],
-        interpret=True)
+        soft_i8_scale=soft_scale, debug_ports=case["debug_ports"])
     d_opt = to_demod_outputs(cfg, o_opt, soft_i8_scale=soft_scale)
 
     np.testing.assert_array_equal(np.asarray(d_opt.bits),
@@ -145,7 +142,7 @@ def test_fuzz_output_format_interactions(case):
     exp_re, exp_im = base.real, base.imag
     if case["soft_i8"]:
         # int8 quantization SATURATES symmetrically (clip(round(s*scale),
-        # -127, 127), demod_kernel.py): soft values outside the rails
+        # -127, 127), models/full.py): soft values outside the rails
         # (reachable on RRC/8-PSK configs before the magnitude tracker
         # converges) clip rather than wrap.
         exp_re = np.clip(exp_re, -127 / SCALE, 127 / SCALE)

@@ -78,7 +78,7 @@ def test_group_framesync_validation_and_reset():
 
 def test_group_framesync_over_mixed_engine():
     """GroupFrameSyncer taps a MixedKernelBatchEngine (heterogeneous M
-    bank, one fused kernel) and recovers every channel's frame with its
+    bank, one steady program) and recovers every channel's frame with its
     own format."""
     from psk_soft_tpu import DemodConfig
     from psk_soft_tpu.models.mixed import MixedParams
@@ -112,8 +112,7 @@ def test_group_framesync_over_mixed_engine():
         rows.append(x.astype(np.complex64))
     bank = np.stack(rows)
 
-    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True)
+    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128)
     eng.set_input_sri(SRI(stream_id="gfs"))
     top = GroupFrameSyncer(eng, fmts)
     blk = 128 * cfg.sps

@@ -1,10 +1,10 @@
-"""int16 ingest mode of the fused kernel (the SDR wire format -- REDHAWK
-bulkio dataShort, cpp/psk_soft_base.cpp:42-47 family): samples cross HBM at
-2 bytes and dequantize in VMEM, halving the input-bound roofline.
+"""int16 ingest mode of the steady step (the SDR wire format -- REDHAWK
+bulkio dataShort, cpp/psk_soft_base.cpp:42-47 family): samples arrive at
+2 bytes and dequantize on the device, halving the input bytes.
 
-Parity gate: the i16 kernel fed the exact wire values must match the f32
-kernel fed the dequantized (i16 * scale) planes -- identical arithmetic
-after the in-VMEM dequant, so tolerances are float-noise tight."""
+Parity gate: the i16 step fed the exact wire values must match the f32
+step fed the dequantized (i16 * scale) planes -- identical arithmetic
+after the dequant, so tolerances are float-noise tight."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -32,8 +32,7 @@ def _quantized_bank(cfg, S, seed0=0, pulse="rect"):
     return xq, xi_re, xi_im, scale
 
 
-def _i16_vs_f32(cfg, S=768, seed0=0, pulse="rect", warm_syms=256,
-                s_tile=128, double_buffer=None):
+def _i16_vs_f32(cfg, S=768, seed0=0, pulse="rect", warm_syms=256):
     xq, xi_re, xi_im, scale = _quantized_bank(cfg, S, seed0, pulse)
     warm_t = warm_syms * cfg.sps
     warm, run = xq[:, :warm_t], xq[:, warm_t:]
@@ -45,13 +44,12 @@ def _i16_vs_f32(cfg, S=768, seed0=0, pulse="rect", warm_syms=256,
         raw_win = warm[:, warm.shape[1] - keep:]
     st = full_from_ff(cfg, st_ff, raw_win=raw_win)
 
-    fn32 = make_full_demod_fn(cfg, s_tile=s_tile, interpret=True)
+    fn32 = make_full_demod_fn(cfg)
     _, out32 = fn32(st, jnp.asarray(np.ascontiguousarray(run.real.T)),
                     jnp.asarray(np.ascontiguousarray(run.imag.T)))
 
     st16 = quantize_full_state(st, scale)
-    fn16 = make_full_demod_fn(cfg, s_tile=s_tile, in_scale=scale,
-                              interpret=True)
+    fn16 = make_full_demod_fn(cfg, in_scale=scale)
     st16b, out16 = fn16(st16, jnp.asarray(np.ascontiguousarray(
         xi_re[:, warm_t:].T)), jnp.asarray(np.ascontiguousarray(
             xi_im[:, warm_t:].T)))
@@ -81,8 +79,8 @@ def test_i16_sps10_concat_path():
 
 
 def test_i16_rrc_interp():
-    """Matched filter + fractional timing on the int16 path (the FIR's
-    banded matmuls run on the dequantized VMEM values)."""
+    """Matched filter + fractional timing on the int16 path (the FIR runs
+    on the dequantized values)."""
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=8, phase_avg=20,
                       matched_filter="rrc", rrc_beta=0.35, rrc_span=8,
                       timing_interp=True)
@@ -100,9 +98,7 @@ def test_i16_double_buffer():
     import functools
     outs = []
     for db in (False, True):
-        fn = functools.partial(demod_block_full, cfg, s_tile=128,
-                               double_buffer=db, in_scale=scale,
-                               interpret=True)
+        fn = functools.partial(demod_block_full, cfg, in_scale=scale)
         _, o = fn(st16, jnp.asarray(np.ascontiguousarray(
             xi_re[:, warm_t:].T)), jnp.asarray(np.ascontiguousarray(
                 xi_im[:, warm_t:].T)))
@@ -137,12 +133,11 @@ def test_i16_quantization_noise_within_golden_tolerance():
     fn_ff = make_ff_demod_fn(cfg, channels=C)
     st_ff, _ = fn_ff(ff_init(cfg, (C,)), jnp.asarray(xs[:, :warm_t]))
     st = full_from_ff(cfg, st_ff)
-    fn32 = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn32 = make_full_demod_fn(cfg)
     _, out32 = fn32(st, jnp.asarray(np.ascontiguousarray(
         xs[:, warm_t:].real.T)), jnp.asarray(np.ascontiguousarray(
             xs[:, warm_t:].imag.T)))
-    fn16 = make_full_demod_fn(cfg, s_tile=128, in_scale=scale,
-                              interpret=True)
+    fn16 = make_full_demod_fn(cfg, in_scale=scale)
     _, out16 = fn16(quantize_full_state(st, scale),
                     jnp.asarray(np.ascontiguousarray(xi_re[:, warm_t:].T)),
                     jnp.asarray(np.ascontiguousarray(xi_im[:, warm_t:].T)))

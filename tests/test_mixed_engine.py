@@ -1,5 +1,5 @@
 """MixedKernelBatchEngine: BASELINE config 4 (heterogeneous M/diff bank)
-through the production engine surface -- one fused kernel launch per block,
+through the production engine surface -- one steady program per block,
 warm-up on the XLA mixed pipeline, per-channel mode planes in the carry."""
 
 import numpy as np
@@ -39,8 +39,7 @@ def _mixed_bank(S, seed=0):
 def test_mixed_engine_matches_xla_pipeline():
     cfg = _cfg()
     params, xs = _mixed_bank(1024, seed=0)
-    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True)
+    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128)
     fn = make_mixed_demod_fn(cfg)
     ref_st = mixed_init(cfg, C)
     for blk in np.split(xs, 8, axis=1):
@@ -58,14 +57,13 @@ def test_mixed_engine_matches_xla_pipeline():
                 np.asarray(ref.sample_index)[common])
             np.testing.assert_array_equal(np.asarray(out.bits)[common],
                                           np.asarray(ref.bits)[common])
-    assert eng.steady  # the fused kernel took over mid-stream
+    assert eng.steady  # the steady step took over mid-stream
 
 
 def test_mixed_engine_packets_three_bit_port():
     cfg = _cfg()
     params, xs = _mixed_bank(1024, seed=40)
-    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True)
+    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128)
     eng.set_input_sri(SRI(stream_id="mixed", xdelta=1e-6))
     got = []
     for blk in np.split(xs, 8, axis=1):
@@ -86,8 +84,7 @@ def test_mixed_engine_packets_three_bit_port():
 def test_mixed_engine_set_params_clears_changed_only():
     cfg = _cfg()
     params, xs = _mixed_bank(1536, seed=80)
-    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True)
+    eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128)
     blocks = np.split(xs, 12, axis=1)
     for blk in blocks[:6]:
         for c in range(C):
@@ -143,10 +140,8 @@ def test_mixed_engine_i16_planes():
     xq = ((re_w.astype(np.float32) * scale).T
           + 1j * (im_w.astype(np.float32) * scale).T).astype(np.complex64)
 
-    ref = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True)
+    ref = MixedKernelBatchEngine(params, cfg, C, block_symbols=128)
     eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True,
                                  ingest_scale=scale)
     need = 128 * cfg.sps
     for i in range(0, 1024 * 8, need):
@@ -174,7 +169,6 @@ def test_mixed_engine_debug_ports_off_all_phases():
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     params, xs = _mixed_bank(1024, seed=9)
     eng = MixedKernelBatchEngine(params, cfg, C, block_symbols=128,
-                                 s_tile=128, interpret=True,
                                  debug_ports=False)
     eng.set_input_sri(SRI(stream_id="mx", xdelta=1e-6))
     need = 128 * cfg.sps

@@ -124,10 +124,8 @@ def test_full_kernel_pipelined_matches_sync():
     cfg = DemodConfig(sps=8, num_avg=20, constellation_size=4, phase_avg=10)
     x = _bank(C, 8 * S, seed=11)
     blk = S * cfg.sps
-    sync = _run(FullKernelBatchEngine(cfg, C, block_symbols=S, s_tile=64,
-                                      interpret=True), x, 8, blk)
-    pipe = _run(FullKernelBatchEngine(cfg, C, block_symbols=S, s_tile=64,
-                                      interpret=True, pipeline_depth=1),
+    sync = _run(FullKernelBatchEngine(cfg, C, block_symbols=S), x, 8, blk)
+    pipe = _run(FullKernelBatchEngine(cfg, C, block_symbols=S, pipeline_depth=1),
                 x, 8, blk)
     for port in ALL_PORTS:
         np.testing.assert_array_equal(_cat(sync, port), _cat(pipe, port))

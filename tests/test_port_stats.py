@@ -65,7 +65,7 @@ def test_batch_engine_port_stats_pipelined():
 
 def test_full_engine_and_group_port_stats():
     cfg = DemodConfig(sps=8, num_avg=20, constellation_size=4, phase_avg=10)
-    eng = FullKernelBatchEngine(cfg, 128, block_symbols=128, interpret=True)
+    eng = FullKernelBatchEngine(cfg, 128, block_symbols=128)
     eng.set_input_sri(SRI(stream_id="f"))
     x = np.stack([_sig(640, seed=c) for c in range(128)])
     got = 0

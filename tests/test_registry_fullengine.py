@@ -51,8 +51,7 @@ def test_full_kernel_batch_engine_matches_ff_engine():
         xs.append(x)
     xs = np.stack(xs)
     ref = BatchEngine(CFG, channels=C, block_symbols=128)
-    eng = FullKernelBatchEngine(CFG, channels=C, block_symbols=128,
-                                s_tile=128, interpret=True)
+    eng = FullKernelBatchEngine(CFG, channels=C, block_symbols=128)
     ref_soft, full_soft = [], []
     for blk in np.split(xs, 8, axis=1):
         for c in range(C):

@@ -341,7 +341,7 @@ def test_bank_fuzz_streaming_equals_oneshot(seed):
 
 
 def test_uniform_matrix_matches_gather_path():
-    """The MXU (banded-matmul) uniform-ratio form equals the gather path
+    """The banded-matmul uniform-ratio form equals the gather path
     on the same signal (within the gather path's phase-table lerp error:
     the matrix holds EXACT tap phases)."""
     from psk_soft_tpu.ops.resample import (resample_block_uniform,

@@ -32,7 +32,7 @@ def test_chain_weak_scaling_report():
                       phase_avg=50)
     rep = chain_scaling_report(cfg, device_counts=[1, 2],
                                channels_per_device=128, symbols=512,
-                               iters=1, reps=1, interpret=True)
+                               iters=1, reps=1)
     assert rep["mode"] == "chain-weak (seam)"
     assert rep["frames_per_block_per_channel"] >= 1
     pts = rep["points"]
@@ -44,8 +44,7 @@ def test_chain_weak_scaling_report():
 
 def test_time_strong_scaling_report():
     rep = time_shard_report(CFG, time_counts=[1, 2, 4], channels=128,
-                            total_symbols=1024, iters=1, reps=1,
-                            interpret=True)
+                            total_symbols=1024, iters=1, reps=1)
     pts = rep["points"]
     assert [p["time_shards"] for p in pts] == [1, 2, 4]
     assert pts[0]["efficiency"] == 1.0

@@ -1,5 +1,5 @@
-"""Channel-sharded full-kernel pipeline on the virtual CPU mesh (interpret
-mode inside shard_map)."""
+"""Channel-sharded steady-state step on the virtual CPU mesh (inside
+shard_map)."""
 
 import numpy as np
 import jax
@@ -14,7 +14,7 @@ from psk_soft_tpu.parallel.sharded_full import (channel_sharding_tm,
                                                 shard_full_state)
 from psk_soft_tpu.testing.signals import gen_psk_channel
 
-C, NS = 256, 512  # 2 chan shards x 128 lanes
+C, NS = 256, 512  # 2 chan shards x 128 channels
 
 
 def test_sharded_full_matches_single_device():
@@ -29,14 +29,14 @@ def test_sharded_full_matches_single_device():
     x_im = jnp.asarray(np.ascontiguousarray(run.imag.T))
 
     # single-device
-    fn1 = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn1 = make_full_demod_fn(cfg)
     _, out1 = fn1(st, x_re, x_im)
 
     # channel-sharded over 2 devices
     mesh = make_mesh(chan=2, time=1)
     sh = channel_sharding_tm(mesh)
     st_sh = shard_full_state(st, mesh)
-    fn2 = make_sharded_full_demod(cfg, mesh, s_tile=128, interpret=True)
+    fn2 = make_sharded_full_demod(cfg, mesh)
     _, out2 = fn2(st_sh, jax.device_put(x_re, sh), jax.device_put(x_im, sh))
 
     np.testing.assert_allclose(np.asarray(out2.soft_re),
@@ -60,15 +60,14 @@ def test_sharded_full_output_profiles():
     x_re = jnp.asarray(np.ascontiguousarray(run.real.T))
     x_im = jnp.asarray(np.ascontiguousarray(run.imag.T))
 
-    fn1 = make_full_demod_fn(cfg, s_tile=128, interpret=True)
+    fn1 = make_full_demod_fn(cfg)
     _, out1 = fn1(st, x_re, x_im)
 
     mesh = make_mesh(chan=2, time=1)
     sh = channel_sharding_tm(mesh)
     st_sh = shard_full_state(st, mesh)
-    fn2 = make_sharded_full_demod(cfg, mesh, s_tile=128,
-                                  soft_i8_scale=100.0, debug_ports=False,
-                                  interpret=True)
+    fn2 = make_sharded_full_demod(cfg, mesh,
+                                  soft_i8_scale=100.0, debug_ports=False)
     _, out2 = fn2(st_sh, jax.device_put(x_re, sh), jax.device_put(x_im, sh))
 
     assert out2.phase is None and out2.sample_index is None

@@ -157,8 +157,7 @@ def test_full_kernel_engine_event_soak():
     rng = np.random.default_rng(7)
     C = 128
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=64, s_tile=64,
-                                interpret=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=64)
     eng.set_input_sri(SRI(stream_id="fk", xdelta=0.01))
     total_soft = 0
 

@@ -2,7 +2,7 @@
 soft_i8): the SDR soft-bit wire format.
 
 The dominant output plane (soft decisions, 8 bytes/symbol/channel float32)
-drops to 2 bytes on the kernel's HBM write AND the device->host fetch; the
+drops to 2 bytes on the steady step's write AND the device->host fetch; the
 packet layer dequantizes on the host.  Quantization error is bounded by
 0.5/scale per component; bits/phase/sampleIndex are computed from the
 full-precision values inside the kernel and must be UNCHANGED.  Explicit
@@ -52,9 +52,8 @@ def test_kernel_soft_i8_quantizes_soft_only():
     st, run = _steady_state(cfg, _channels())
     x_re = jnp.asarray(run.real.T)
     x_im = jnp.asarray(run.imag.T)
-    fn32 = make_full_demod_fn(cfg, s_tile=128, interpret=True)
-    fn8 = make_full_demod_fn(cfg, s_tile=128, soft_i8_scale=SCALE,
-                             interpret=True)
+    fn32 = make_full_demod_fn(cfg)
+    fn8 = make_full_demod_fn(cfg, soft_i8_scale=SCALE)
     st32, o32 = fn32(st, x_re, x_im)
     st8, o8 = fn8(st, x_re, x_im)
 
@@ -80,8 +79,7 @@ def test_kernel_soft_i8_clips_to_int8_range():
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     xs = 5.0 * _channels()          # |soft| ~ 5 >> 1.27
     st, run = _steady_state(cfg, xs)
-    fn8 = make_full_demod_fn(cfg, s_tile=128, soft_i8_scale=SCALE,
-                             interpret=True)
+    fn8 = make_full_demod_fn(cfg, soft_i8_scale=SCALE)
     _, o8 = fn8(st, jnp.asarray(run.real.T), jnp.asarray(run.imag.T))
     re = np.asarray(o8.soft_re)
     assert re.min() >= -127 and re.max() <= 127
@@ -91,8 +89,7 @@ def test_kernel_soft_i8_clips_to_int8_range():
 def test_to_demod_outputs_quant_roundtrip_and_guard():
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     st, run = _steady_state(cfg, _channels())
-    fn8 = make_full_demod_fn(cfg, s_tile=128, soft_i8_scale=SCALE,
-                             interpret=True)
+    fn8 = make_full_demod_fn(cfg, soft_i8_scale=SCALE)
     _, o8 = fn8(st, jnp.asarray(run.real.T), jnp.asarray(run.imag.T))
     with pytest.raises(ValueError, match="soft_i8_scale"):
         to_demod_outputs(cfg, o8)           # scale not passed
@@ -115,7 +112,7 @@ def test_engine_soft_i8_packets_match_f32_engine():
     the EOS drain."""
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     xs = _channels()
-    kw = dict(block_symbols=128, s_tile=128, interpret=True)
+    kw = dict(block_symbols=128)
     e32 = FullKernelBatchEngine(cfg, C, **kw)
     e8 = FullKernelBatchEngine(cfg, C, soft_i8=True, soft_i8_scale=SCALE,
                                **kw)
@@ -155,8 +152,7 @@ def test_engine_soft_i8_reconfigure_keeps_mode():
     quantizes (the _full_kwargs carry the scale through configure)."""
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     xs = _channels()
-    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, s_tile=128,
-                                interpret=True, soft_i8=True)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=128, soft_i8=True)
     eng.set_input_sri(SRI(stream_id="rc", xdelta=1e-6))
     need = 128 * cfg.sps
     for i in range(0, need * 5, need):
@@ -182,11 +178,16 @@ def test_soft_i8_guard_mutually_exclusive():
 
 
 def test_soft_i8_requires_aligned_tile():
+    """No tile rule is left: a 56-symbol block (not 32-row aligned)
+    quantizes exactly like the float32 output of the same block."""
     cfg = DemodConfig(sps=8, num_avg=50, constellation_size=4, phase_avg=20)
     st, run = _steady_state(cfg, _channels())
-    # 56-symbol block with s_tile=56: viable for the kernel (>= the
-    # (num_avg-1)-symbol carry window) but not 32-row aligned.
-    with pytest.raises(ValueError, match="s_tile % 32"):
-        demod_block_full(cfg, st, jnp.asarray(run.real.T[: 56 * 8]),
-                         jnp.asarray(run.imag.T[: 56 * 8]), s_tile=56,
-                         soft_i8_scale=SCALE, interpret=True)
+    x_re = jnp.asarray(run.real.T[: 56 * 8])
+    x_im = jnp.asarray(run.imag.T[: 56 * 8])
+    _, o8 = demod_block_full(cfg, st, x_re, x_im, soft_i8_scale=SCALE)
+    _, o32 = demod_block_full(cfg, st, x_re, x_im)
+    assert o8.soft_re.dtype == jnp.int8 and o8.soft_re.shape == (56, C)
+    want = np.clip(np.round(np.asarray(o32.soft_re) * SCALE), -127, 127)
+    np.testing.assert_array_equal(np.asarray(o8.soft_re), want)
+    np.testing.assert_array_equal(np.asarray(o8.bits_packed),
+                                  np.asarray(o32.bits_packed))

@@ -1,5 +1,5 @@
-"""Time+channel-sharded single-kernel pipeline vs the jnp sharded reference
-and the single-device full kernel (CPU mesh, interpret mode)."""
+"""Time+channel-sharded steady-state step vs the jnp sharded reference
+and the single-device steady step (CPU mesh)."""
 
 import numpy as np
 import jax
@@ -12,7 +12,7 @@ from psk_soft_tpu.parallel.mesh import make_mesh
 from psk_soft_tpu.parallel.sharded_full import make_time_sharded_full_demod
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-C, NS = 256, 2048  # 128 lanes per channel shard (kernel constraint)
+C, NS = 256, 2048  # 128 channels per channel shard
 
 
 def _signals(m=4, diff=False):
@@ -30,12 +30,11 @@ def _signals(m=4, diff=False):
     return np.stack(out)
 
 
-def _run_sharded(cfg, xs, meshdims, ns, s_tile=128, mixed_params=None):
+def _run_sharded(cfg, xs, meshdims, ns, mixed_params=None):
     chan_ax, time_ax = meshdims
     mesh = make_mesh(chan=chan_ax, time=time_ax)
-    run = make_time_sharded_full_demod(cfg, mesh, ns, s_tile=s_tile,
-                                       mixed_params=mixed_params,
-                                       interpret=True)
+    run = make_time_sharded_full_demod(cfg, mesh, ns,
+                                       mixed_params=mixed_params)
     sh = NamedSharding(mesh, P("time", "chan"))
     x_re = jax.device_put(jnp.asarray(np.ascontiguousarray(xs.real.T)), sh)
     x_im = jax.device_put(jnp.asarray(np.ascontiguousarray(xs.imag.T)), sh)
@@ -209,12 +208,11 @@ def test_time_sharded_i16_matches_f32():
 
     mesh = make_mesh(chan=2, time=4)
     sh = NamedSharding(mesh, P("time", "chan"))
-    run16 = make_time_sharded_full_demod(cfg, mesh, NS, s_tile=128,
-                                         in_scale=scale, interpret=True)
+    run16 = make_time_sharded_full_demod(cfg, mesh, NS,
+                                         in_scale=scale)
     o16 = run16(jax.device_put(jnp.asarray(re_w), sh),
                 jax.device_put(jnp.asarray(im_w), sh))
-    run32 = make_time_sharded_full_demod(cfg, mesh, NS, s_tile=128,
-                                         interpret=True)
+    run32 = make_time_sharded_full_demod(cfg, mesh, NS)
     o32 = run32(
         jax.device_put(jnp.asarray(np.ascontiguousarray(xq.real.T)), sh),
         jax.device_put(jnp.asarray(np.ascontiguousarray(xq.imag.T)), sh))
@@ -240,10 +238,9 @@ def test_time_sharded_soft_i8_quantizes_after_seam_correction():
     sh = NamedSharding(mesh, P("time", "chan"))
     xr = jax.device_put(jnp.asarray(np.ascontiguousarray(xs.real.T)), sh)
     xi = jax.device_put(jnp.asarray(np.ascontiguousarray(xs.imag.T)), sh)
-    run32 = make_time_sharded_full_demod(cfg, mesh, NS, s_tile=128,
-                                         interpret=True)
-    run8 = make_time_sharded_full_demod(cfg, mesh, NS, s_tile=128,
-                                        soft_i8_scale=100.0, interpret=True)
+    run32 = make_time_sharded_full_demod(cfg, mesh, NS)
+    run8 = make_time_sharded_full_demod(cfg, mesh, NS,
+                                        soft_i8_scale=100.0)
     o32 = run32(xr, xi)
     o8 = run8(xr, xi)
     valid = np.asarray(o8[5])

@@ -33,8 +33,7 @@ def _kernel_block(cfg, soft_scale=None):
     fn_ff = make_ff_demod_fn(cfg, channels=C)
     st_ff, _ = fn_ff(ff_init(cfg, (C,)), jnp.asarray(warm))
     st = full_from_ff(cfg, st_ff)
-    fn = make_full_demod_fn(cfg, s_tile=128, soft_i8_scale=soft_scale,
-                            interpret=True)
+    fn = make_full_demod_fn(cfg, soft_i8_scale=soft_scale)
     _, fo = fn(st, jnp.asarray(run.real.T), jnp.asarray(run.imag.T))
     return fo
 

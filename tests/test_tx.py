@@ -1,5 +1,7 @@
 """Transmit chain (ops/tx.py): exact inverses of the receive conventions."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -61,7 +63,6 @@ def test_frame_stream_validation():
 def test_rrc_shaping_demodulates():
     """TX RRC + RX RRC matched filter composes to a clean demod."""
     from psk_soft_tpu.models.blockpsk import ff_init, make_ff_demod_fn
-    from psk_soft_tpu.utils.transfer import to_device, to_host
 
     rng = np.random.default_rng(63)
     n_sym, sps = 600, 8
@@ -71,8 +72,8 @@ def test_rrc_shaping_demodulates():
     cfg = DemodConfig(sps=sps, num_avg=50, constellation_size=4,
                       phase_avg=50, matched_filter="rrc")
     st, out = make_ff_demod_fn(cfg, channels=1)(ff_init(cfg, (1,)),
-                                                to_device(x[None]))
-    out = to_host(out)
+                                                jnp.asarray(x[None]))
+    out = jax.device_get(out)
     v = out.valid[0]
     soft = out.soft[0][v][20:]      # skip the tracker-settle symbols
     assert soft.size > 480

@@ -1,11 +1,11 @@
-"""Mosaic Viterbi kernel == XLA scan decoder, bit for bit.
+"""Viterbi kernel == XLA scan decoder, bit for bit.
 
-The kernel (ops/pallas/viterbi_kernel.py) runs in interpret mode on the CPU
-mesh; the XLA scan decoder is itself oracle-gated in test_fec.py, so equality
-here chains the kernel to the numpy register-walk reference.  Shapes are
-deliberately awkward (batch below one lane tile, T off the tile grid) to
-exercise the padding paths.  Hardware throughput/parity for the compiled
-kernel lives in scripts/hwcheck_r04.py -> docs/HWCHECK_r04.md.
+The kernel (ops/pallas/viterbi_kernel.py) runs in the Pallas interpreter on
+the CPU; the XLA scan decoder is itself oracle-gated in test_fec.py, so
+equality here chains the kernel to the numpy register-walk reference.
+Shapes are deliberately awkward (row counts off the row tile, odd trellis
+lengths) to exercise the padding paths.  The compiled kernel is compared
+with the scan on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -13,12 +13,13 @@ import jax.numpy as jnp
 import pytest
 
 from psk_soft_tpu.ops.fec import (CODE_K3, CODE_K7, CODE_K9, PUNCTURE_2_3,
-                                  ConvCode, conv_encode, hard_llrs,
-                                  make_stream_soft_fn, viterbi_decode,
-                                  viterbi_decode_parallel,
-                                  viterbi_stream_init, viterbi_stream_step)
-from psk_soft_tpu.ops.pallas.viterbi_kernel import (butterfly_signs,
+                                  PUNCTURE_3_4, ConvCode, _resolve_backend,
+                                  conv_encode, hard_llrs, viterbi_decode,
+                                  viterbi_decode_parallel)
+from psk_soft_tpu.ops.pallas.viterbi_kernel import (ROW_TILE, _bit_reverse,
+                                                    butterfly_signs,
                                                     viterbi_decode_pallas)
+from test_fec import oracle_viterbi
 
 
 def _noisy_llrs(code, bits, sigma, rng, terminate=True):
@@ -36,8 +37,7 @@ def test_decode_parity(code, n_info, terminate):
     llr = _noisy_llrs(code, bits, 0.4, rng)
     ref = np.asarray(viterbi_decode(code, llr, terminate=terminate,
                                     backend="xla"))
-    out = np.asarray(viterbi_decode_pallas(code, llr, terminate=terminate,
-                                           interpret=True, t_tile=16))
+    out = np.asarray(viterbi_decode_pallas(code, llr, terminate=terminate))
     np.testing.assert_array_equal(out, ref)
     if terminate:
         np.testing.assert_array_equal(ref, bits)   # sigma small enough
@@ -60,40 +60,6 @@ def test_decode_parity_k9_and_puncture():
         np.asarray(viterbi_decode(punct, llr, backend="xla")))
 
 
-def test_stream_step_parity_and_carry_interchange():
-    """Carry layout is backend-invariant: alternate backends mid-stream."""
-    code = CODE_K7
-    rng = np.random.default_rng(2)
-    bits = rng.integers(0, 2, (3, 256)).astype(np.int8)
-    llr = _noisy_llrs(code, bits, 0.3, rng, terminate=False)
-    steps = llr.reshape(3, -1, code.n)
-    st_x = viterbi_stream_init(code, 3, 70)
-    st_p = viterbi_stream_init(code, 3, 70)
-    for i, backend_p in enumerate(["pallas", "xla", "pallas", "xla"]):
-        blk = steps[:, 64 * i:64 * (i + 1)]
-        st_x, b_x = viterbi_stream_step(code, st_x, blk, backend="xla")
-        st_p, b_p = viterbi_stream_step(code, st_p, blk, backend=backend_p)
-        np.testing.assert_array_equal(np.asarray(b_p), np.asarray(b_x))
-        np.testing.assert_array_equal(np.asarray(st_p.dec),
-                                      np.asarray(st_x.dec))
-        np.testing.assert_allclose(np.asarray(st_p.pm),
-                                   np.asarray(st_x.pm), atol=1e-4)
-
-
-def test_stream_soft_fn_backend_parity():
-    code = CODE_K7
-    rng = np.random.default_rng(3)
-    soft = (rng.standard_normal((2, 64))
-            + 1j * rng.standard_normal((2, 64))).astype(np.complex64)
-    st = viterbi_stream_init(code, 2, 70)
-    fx = make_stream_soft_fn(code, 4, backend="xla")
-    fp = make_stream_soft_fn(code, 4, backend="pallas")
-    st_x, b_x = fx(st, jnp.asarray(soft))
-    st_p, b_p = fp(st, jnp.asarray(soft))
-    np.testing.assert_array_equal(np.asarray(b_p), np.asarray(b_x))
-    np.testing.assert_array_equal(np.asarray(st_p.dec), np.asarray(st_x.dec))
-
-
 def test_parallel_decode_backend_parity():
     code = CODE_K3
     rng = np.random.default_rng(4)
@@ -107,18 +73,23 @@ def test_parallel_decode_backend_parity():
 
 
 def test_butterfly_signs_layout():
-    """Row a*S + 2j + p carries exp[s'=(S/2)a+j, p] -- the concat layout."""
+    """Entry [a, p, :, i] carries exp[s', p] for s' = (a << (K-2)) | rev(i),
+    the successor the kernel writes at bit-reversed position 2i + a."""
     from psk_soft_tpu.ops.fec import _trellis
 
-    code = CODE_K7
-    _, exp = _trellis(code)
-    flat = butterfly_signs(code)
-    s = code.states
-    for sp in [0, 1, 17, s - 1]:
-        a, j = sp // (s // 2), sp % (s // 2)
-        for p in range(2):
-            np.testing.assert_array_equal(flat[a * s + 2 * j + p],
-                                          exp[sp, p])
+    for code in (CODE_K3, CODE_K7, CODE_K9):
+        _, exp = _trellis(code)
+        signs = butterfly_signs(code)
+        m = code.k - 1
+        half = code.states // 2
+        assert signs.shape == (2, 2, code.n, half)
+        for i in [0, 1, half // 2, half - 1]:
+            for a in range(2):
+                sp = (a << (m - 1)) | int(_bit_reverse(i, m - 1))
+                assert _bit_reverse(2 * i + a, m) == sp
+                for p in range(2):
+                    np.testing.assert_array_equal(signs[a, p, :, i],
+                                                  exp[sp, p])
 
 
 def test_backend_validation():
@@ -126,41 +97,10 @@ def test_backend_validation():
         viterbi_decode(CODE_K3, np.zeros(16, np.float32), backend="cuda")
 
 
-@pytest.mark.parametrize("terminate", [True, False])
-def test_fused_matches_two_phase(terminate):
-    # The fused single-launch kernel (default for frame-length trellises)
-    # and the two-phase time-tiled path (forced by an explicit t_tile)
-    # must produce identical bits.
-    code = CODE_K7
-    rng = np.random.default_rng(11)
-    bits = rng.integers(0, 2, (4, 300)).astype(np.int8)
-    llr = _noisy_llrs(code, bits, 0.3, rng, terminate=terminate)
-    fused = np.asarray(viterbi_decode_pallas(code, llr, terminate=terminate,
-                                             interpret=True))
-    two = np.asarray(viterbi_decode_pallas(code, llr, terminate=terminate,
-                                           interpret=True, t_tile=64))
-    np.testing.assert_array_equal(fused, two)
-
-
-def test_decode_parity_odd_t_tile():
-    # An explicit t_tile that is not a multiple of the unroll factor is
-    # rounded up internally: a full tile's rounded-up step loop must not
-    # write decision rows past its block (regression for the 4-step
-    # unroll; t_tile=18 -> 20).
-    code = CODE_K7
-    rng = np.random.default_rng(13)
-    bits = rng.integers(0, 2, (3, 90)).astype(np.int8)
-    llr = _noisy_llrs(code, bits, 0.3, rng)
-    ref = np.asarray(viterbi_decode(code, llr, backend="xla"))
-    out = np.asarray(viterbi_decode_pallas(code, llr, interpret=True,
-                                           t_tile=18))
-    np.testing.assert_array_equal(out, ref)
-
-
 def test_decode_parity_fuzz():
     # Seeded property fuzz: random constraint lengths, polynomials,
-    # frame lengths, batch sizes, modes -- kernel (fused or two-phase,
-    # depending on shape) must equal the XLA scan decoder bit for bit.
+    # frame lengths, batch sizes, modes -- the kernel must equal the XLA
+    # scan decoder bit for bit.
     rng = np.random.default_rng(99)
     for trial in range(6):
         k = int(rng.choice([3, 4, 5, 7]))
@@ -180,7 +120,42 @@ def test_decode_parity_fuzz():
         ref = np.asarray(viterbi_decode(code, llr, terminate=terminate,
                                         backend="xla"))
         out = np.asarray(viterbi_decode_pallas(code, llr,
-                                               terminate=terminate,
-                                               interpret=True))
+                                               terminate=terminate))
         np.testing.assert_array_equal(out, ref, err_msg=str(
             (trial, k, polys, t, b, terminate)))
+
+
+_CODES = {"k7": CODE_K7, "k9": CODE_K9,
+          "k7p34": ConvCode(7, (0o171, 0o133), PUNCTURE_3_4)}
+
+
+@pytest.mark.parametrize("name", sorted(_CODES))
+@pytest.mark.parametrize("terminate", [True, False])
+@pytest.mark.parametrize("rows", [1, ROW_TILE + 3])
+def test_kernel_matches_scan_and_oracle(name, terminate, rows):
+    """K=7, K=9 and punctured K=7, both termination modes, row counts off
+    the row tile: kernel == XLA scan == numpy oracle."""
+    code = _CODES[name]
+    rng = np.random.default_rng(rows + 7 * terminate)
+    n_info = 48 if code.puncture is None else 51
+    bits = rng.integers(0, 2, (rows, n_info)).astype(np.int8)
+    llr = _noisy_llrs(code, bits, 0.5, rng, terminate=terminate)
+    ref = np.asarray(viterbi_decode(code, llr, terminate=terminate,
+                                    backend="xla"))
+    out = np.asarray(viterbi_decode_pallas(code, llr, terminate=terminate))
+    np.testing.assert_array_equal(out, ref)
+    from psk_soft_tpu.ops.fec import depuncture
+    full = np.asarray(depuncture(code, llr))
+    for r in (0, rows - 1):
+        np.testing.assert_array_equal(
+            out[r], oracle_viterbi(code, full[r], terminate=terminate))
+
+
+def test_auto_backend_by_platform(monkeypatch):
+    """auto takes the kernel on a GPU and the XLA scan on the CPU."""
+    import jax
+
+    assert _resolve_backend("auto") == "xla"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert _resolve_backend("auto") == "pallas"
+    assert _resolve_backend("xla") == "xla"
